@@ -1,0 +1,217 @@
+"""Multi-view Mask R-CNN, inference.
+
+Port of `mulit_view_object_detection_tpu/models/detector.py`. One module
+covers the variants the port runs, switched by config:
+
+  NUM_VIEWS == 1   -> stock single-view Mask R-CNN
+  VANILLA          -> the main view's features, P2/P3 zeroed
+  otherwise        -> projected path: per level P4, P5, P6 the CUDA
+                      unprojection kernel lifts every view into a voxel
+                      grid, the conv3d U-Net fuses it, the CUDA
+                      reprojection kernel samples it along the main
+                      view's rays and DepthCollapse folds the samples;
+                      P2/P3 are zeroed and never computed.
+
+Views fold into the batch axis for backbone/FPN; the RPN on a zeroed
+level is evaluated on a 1x1 zero tile and tiled (exact: a conv stack on
+an all-zero input is spatially constant). COMPUTE_DTYPE "bfloat16" keeps
+the convolutions' weights and the activations in bf16, as flax's
+`dtype=` does; BatchNorm parameters and statistics, geometry, scores and
+boxes stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import check_supported
+from ..kernels.reproject import project_grid_nearest
+from ..kernels.unproject import unproject_features_fused
+from ..ops.boxes import norm_boxes
+from ..ops.detection import refine_detections
+from ..ops.image_meta import parse_image_meta
+from ..ops.projection import voxel_grid_points
+from ..ops.proposals import generate_proposals
+from ..ops.roi_align import pyramid_roi_align
+from .fpn import FPN
+from .fusion import DepthCollapse, GridFusion
+from .heads import ClassifierHead, MaskHead
+from .resnet import BatchNorm, ResNet
+from .rpn import RPNHead
+
+_INIT_LAYERS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+                nn.Linear)
+
+
+class MaskRCNN(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        check_supported(config)
+        cfg = self.config = config
+        self.compute_dtype = (torch.bfloat16
+                              if cfg.COMPUTE_DTYPE == "bfloat16"
+                              else torch.float32)
+        c = cfg.TOP_DOWN_PYRAMID_SIZE
+        self.multiview = cfg.NUM_VIEWS > 1
+        self.projected = self.multiview and not cfg.VANILLA
+        self.zero_levels = (set(getattr(cfg, "ZERO_PG_LEVELS", (0, 1)))
+                            if self.multiview else set())
+        self.backbone = ResNet(cfg.BACKBONE,
+                               getattr(cfg, "RESNET50_STAGE4_BLOCKS", None))
+        self.fpn = FPN(c, post_relu=self.multiview)
+        if self.projected:
+            # separate fusion/collapse weights per active level
+            # (model_multi.py:394-463)
+            for li in range(5):
+                if li not in self.zero_levels:
+                    self.add_module(f"grid_fusion_p{li + 2}",
+                                    GridFusion(c, cfg.NUM_VIEWS))
+                    self.add_module(f"depth_collapse_p{li + 2}",
+                                    DepthCollapse(c, cfg.samples))
+        self.rpn = RPNHead(c, len(cfg.RPN_ANCHOR_RATIOS),
+                           cfg.RPN_ANCHOR_STRIDE)
+        self.classifier_head = ClassifierHead(
+            c, cfg.NUM_CLASSES, cfg.POOL_SIZE, cfg.FPN_CLASSIF_FC_LAYERS_SIZE)
+        # the multi-view fork narrows the mask convs (model_multi.py:1412)
+        self.mask_head = MaskHead(c, cfg.NUM_CLASSES,
+                                  128 if self.multiview else 256)
+        self._grid_pts = {}
+        self.to(self.compute_dtype)
+        for mod in self.modules():            # flax keeps BN in float32
+            if isinstance(mod, BatchNorm):
+                mod.float()
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """flax's default initialisation, drawn on the CPU from
+        `generator` so every device gets the same weights: lecun-normal
+        kernels (truncated at 2 std), zero biases, identity BatchNorms."""
+        for mod in self.modules():
+            if isinstance(mod, _INIT_LAYERS):
+                w = mod.weight
+                transposed = isinstance(mod, (nn.ConvTranspose2d,
+                                              nn.ConvTranspose3d))
+                fan_in = (w.shape[0] * math.prod(w.shape[2:]) if transposed
+                          else w[0].numel())
+                std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+                t = torch.empty(w.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                w.copy_(t)
+                mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+
+    def _grid_points(self, device):
+        if device not in self._grid_pts:
+            self._grid_pts[device] = torch.from_numpy(
+                voxel_grid_points(self.config)).to(device)
+        return self._grid_pts[device]
+
+    @torch.no_grad()
+    def forward(self, batch):
+        """batch: images [B, V, H, W, 3] molded float; image_meta
+        [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
+        [B, 3, 3] float32 (multi-view). All tensors on the model's device.
+        Returns the JAX module's inference outputs."""
+        cfg = self.config
+        images = batch["images"]
+        b, v, h, w, _ = images.shape
+        if v != cfg.NUM_VIEWS:
+            raise ValueError(f"images carry {v} views, config {cfg.NUM_VIEWS}")
+        x = images.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
+        _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype))
+        levels = self.fpn(c2, c3, c4, c5)
+        fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w))
+
+        # RPN, zero levels constant-folded
+        k = len(cfg.RPN_ANCHOR_RATIOS)
+        astr = cfg.RPN_ANCHOR_STRIDE
+        logits_l, probs_l, deltas_l = [], [], []
+        for li, fmap in enumerate(fmaps):
+            if li in zero_levels:
+                lh, lw = fmap.shape[2], fmap.shape[3]
+                outs = self.rpn(fmap.new_zeros(b, fmap.shape[1], 1, 1))
+                reps = (-(-lh // astr)) * (-(-lw // astr))
+                outs = [t.repeat(1, reps, 1) for t in outs]
+            else:
+                outs = self.rpn(fmap)
+            logits_l.append(outs[0])
+            probs_l.append(outs[1])
+            deltas_l.append(outs[2])
+        rpn_probs = torch.cat(probs_l, dim=1)
+        rpn_bbox = torch.cat(deltas_l, dim=1)
+        proposals = generate_proposals(
+            rpn_probs, rpn_bbox, batch["anchors"],
+            proposal_count=cfg.POST_NMS_ROIS_INFERENCE,
+            nms_threshold=cfg.RPN_NMS_THRESHOLD,
+            pre_nms_limit=cfg.PRE_NMS_LIMIT,
+            bbox_std_dev=np.asarray(cfg.RPN_BBOX_STD_DEV))
+
+        mrcnn_maps = [fm.permute(0, 2, 3, 1) for fm in fmaps[:4]]
+        pooled = pyramid_roi_align(proposals, mrcnn_maps, (h, w),
+                                   cfg.POOL_SIZE)
+        logits, probs, bbox = self.classifier_head(pooled)
+        windows = norm_boxes(parse_image_meta(batch["image_meta"])["window"],
+                             (h, w))
+        detections = refine_detections(
+            proposals, probs, bbox, windows,
+            bbox_std_dev=np.asarray(cfg.BBOX_STD_DEV),
+            detection_min_confidence=cfg.DETECTION_MIN_CONFIDENCE,
+            detection_max_instances=cfg.DETECTION_MAX_INSTANCES,
+            detection_nms_threshold=cfg.DETECTION_NMS_THRESHOLD)
+        pooled_m = pyramid_roi_align(detections[..., :4], mrcnn_maps, (h, w),
+                                     cfg.MASK_POOL_SIZE)
+        return {
+            "rpn_class_logits": torch.cat(logits_l, dim=1),
+            "rpn_probs": rpn_probs,
+            "rpn_bbox": rpn_bbox,
+            "proposals": proposals,
+            "mrcnn_class_logits": logits,
+            "mrcnn_probs": probs,
+            "mrcnn_bbox": bbox,
+            "detections": detections,
+            "mrcnn_masks": self.mask_head(pooled_m),
+        }
+
+    def _fuse_views(self, batch, levels, b, v, image_shape):
+        """levels: 5 maps [B*V, C, h, w]. Returns ([P2..P6] as
+        [B, C, h, w], zero level indices)."""
+        cfg = self.config
+        if v == 1:
+            return levels, set()
+        levels = [p.reshape(b, v, *p.shape[1:]) for p in levels]
+        out = []
+        if not self.projected:                    # VANILLA
+            for li, p in enumerate(levels):
+                main = p[:, 0]
+                out.append(torch.zeros_like(main) if li in self.zero_levels
+                           else main)
+            return out, set(self.zero_levels)
+
+        grid_pts = self._grid_points(levels[0].device)
+        grid_shape = (cfg.nvox, cfg.nvox, cfg.nvox_z)
+        rcam = batch["Rcam"].float()
+        kmat = batch["Kmat"].float()
+        for li, p in enumerate(levels):
+            if li in self.zero_levels:            # PG2/PG3 memory cap
+                out.append(torch.zeros_like(p[:, 0]))
+                continue
+            feats = p.permute(0, 1, 3, 4, 2).contiguous()   # [B,V,h,w,C]
+            vox = unproject_features_fused(feats, rcam, kmat, image_shape,
+                                           grid_pts, grid_shape, relu=True)
+            fusion = getattr(self, f"grid_fusion_p{li + 2}")
+            collapse = getattr(self, f"depth_collapse_p{li + 2}")
+            fused = fusion(vox.permute(0, 4, 1, 2, 3))      # [B,C,X,Y,Z]
+            rays = project_grid_nearest(
+                fused.permute(0, 2, 3, 4, 1).contiguous(), kmat,
+                image_shape, p.shape[3], cfg.samples, cfg)
+            out.append(collapse(rays))
+        return out, set(self.zero_levels)

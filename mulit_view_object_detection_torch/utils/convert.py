@@ -1,0 +1,113 @@
+"""Weight bridge between the JAX package's flax variables and the port's
+torch state_dict.
+
+The flax tree is taken as nested dicts of numpy arrays
+({"params": ..., "batch_stats": ...}), so no jax is needed. Layer names
+are shared, so a key maps by path: "a/b/kernel" -> "a.b.weight". The
+transforms, by layer kind:
+
+  * Conv kernels HWIO -> OIHW, DHWIO -> OIDHW (voxel axes X, Y, Z are
+    torch's D, H, W); grouped convs (DepthCollapse dw1/dw2) have
+    I = in/groups on both sides, so they need nothing more.
+  * flax ConvTranspose (transpose_kernel=False; the U-Net's up1/up2 and
+    the mask head's deconv) convolves the dilated input with its kernel
+    as is, where torch's ConvTranspose convolves with the kernel flipped:
+    spatial flip, then [k.., I, O] -> [I, O, k..].
+  * Dense kernels [in, out] -> [out, in].
+  * BatchNorm `<bn>/BatchNorm_0/{scale, bias}` and batch_stats
+    `{mean, var}` -> `<bn>.{weight, bias, running_mean, running_var}`
+    (epsilon 1e-3 lives in the torch module).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# flax ConvTranspose layers, by their last path component
+TRANSPOSED_CONVS = frozenset({"up1", "up2", "mrcnn_mask_deconv"})
+_BN = "BatchNorm_0"
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _kernel_to_torch(layer, kernel):
+    nd = kernel.ndim
+    if nd == 2:
+        return kernel.T
+    spatial = tuple(range(nd - 2))
+    if layer in TRANSPOSED_CONVS:
+        kernel = np.flip(kernel, axis=spatial)
+        return kernel.transpose((nd - 2, nd - 1) + spatial)
+    return kernel.transpose((nd - 1, nd - 2) + spatial)
+
+
+def _kernel_to_flax(layer, weight):
+    nd = weight.ndim
+    if nd == 2:
+        return weight.T
+    spatial = tuple(range(2, nd))
+    if layer in TRANSPOSED_CONVS:
+        kernel = weight.transpose(spatial + (0, 1))
+        return np.flip(kernel, axis=tuple(range(nd - 2)))
+    return weight.transpose(spatial + (1, 0))
+
+
+def flax_to_torch(variables):
+    """{"params": tree, "batch_stats": tree} of numpy arrays ->
+    {name: float32 tensor} for MaskRCNN.load_state_dict(strict=True)."""
+    out = {}
+    for path, arr in _flatten(variables.get("params", {})):
+        *mods, leaf = path
+        if mods and mods[-1] == _BN:
+            name = ".".join(mods[:-1]) + (".weight" if leaf == "scale"
+                                           else ".bias")
+            out[name] = arr
+        elif leaf == "kernel":
+            out[".".join(mods) + ".weight"] = _kernel_to_torch(mods[-1], arr)
+        elif leaf == "bias":
+            out[".".join(mods) + ".bias"] = arr
+        else:
+            raise KeyError(f"unmapped flax parameter {'/'.join(path)}")
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        *mods, leaf = path
+        if not mods or mods[-1] != _BN or leaf not in ("mean", "var"):
+            raise KeyError(f"unmapped flax statistic {'/'.join(path)}")
+        out[".".join(mods[:-1]) + ".running_" + leaf] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in out.items()}
+
+
+def torch_to_flax(state_dict):
+    """Inverse of flax_to_torch: state_dict -> {"params", "batch_stats"}
+    nested dicts of float32 numpy arrays."""
+    bns = {k[:-len(".running_mean")] for k in state_dict
+           if k.endswith(".running_mean")}
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = np.ascontiguousarray(value, np.float32)
+
+    for name, t in state_dict.items():
+        arr = t.detach().float().cpu().numpy()
+        mod, leaf = name.rsplit(".", 1)
+        path = tuple(mod.split("."))
+        if mod in bns:
+            if leaf.startswith("running_"):
+                put(stats, path + (_BN, leaf[len("running_"):]), arr)
+            else:
+                put(params, path + (_BN, "scale" if leaf == "weight"
+                                    else "bias"), arr)
+        elif leaf == "weight":
+            put(params, path + ("kernel",), _kernel_to_flax(path[-1], arr))
+        else:
+            put(params, path + ("bias",), arr)
+    return {"params": params, "batch_stats": stats}

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked `cuda`: these need an NVIDIA GPU, nvcc and the sm_90a target, and
+skip where torch.cuda.is_available() is false. The file imports neither
+jax nor the repo's conftest, so on a GPU host it runs as
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_kernels_cuda.py
+
+Tolerances: the unprojection kernel uses explicitly rounded float32
+operations in the plain version's order, so float32 agrees bit for bit;
+in bfloat16 both round the same float32 sum once, also exact. The
+reprojection copies values: exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mulit_view_object_detection_torch.kernels import (  # noqa: E402
+    reproject, unproject)
+from mulit_view_object_detection_torch.ops import projection as P  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
+def test_unproject_kernel_matches_plain(dev, dtype, fh, fw):
+    g = torch.Generator().manual_seed(fh * 100 + fw)
+    bv, v, c, n = 4, 2, 64, 3000
+    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype)
+    x = torch.rand(bv, n, generator=g) * (fw + 2.0) - 1.5
+    y = torch.rand(bv, n, generator=g) * (fh + 2.0) - 1.5
+    x[:, :64] = -torch.rand(64, generator=g) * 0.98 - 0.01   # (-1, 0)
+    y[:, 64:128] = -torch.rand(64, generator=g) * 0.98 - 0.01
+    x[:, 128:192] = 0.25
+    for relu in (False, True):
+        ref = P.bilinear_gather_fused(feats.to(dev), x.to(dev), y.to(dev),
+                                      fh, fw, v, relu)
+        before = unproject.launches
+        got = unproject.bilinear_gather_fused(feats.to(dev), x.to(dev),
+                                              y.to(dev), fh, fw, v, relu)
+        torch.cuda.synchronize()
+        assert unproject.launches == before + 1
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("iz", [(0, 2, -1), (-1, 1, 1, 3), (3, 3, 0)])
+def test_reproject_kernel_matches_plain(dev, dtype, iz):
+    g = torch.Generator().manual_seed(len(iz))
+    b, nx, ny, nz, c = 2, 5, 4, 4, 64
+    s_d, npix = len(iz), 400
+    grid = torch.randn(b, nx, ny, nz, c, generator=g).to(dtype)
+    xg = torch.rand(b, s_d, npix, generator=g) * (nx + 1.5) - 1.0
+    yg = torch.rand(b, s_d, npix, generator=g) * (ny + 1.5) - 1.0
+    ties = torch.tensor([-0.5, 0.5, 1.5, 2.5, 3.5, 4.5]).repeat(4)
+    xg[:, :, :24] = ties
+    yg[:, :, 24:48] = ties
+    args = (grid.to(dev), xg.to(dev), yg.to(dev), np.asarray(iz))
+    ref = P.zslice_gather(*args)
+    before = reproject.launches
+    got = reproject.zslice_gather(*args)
+    torch.cuda.synchronize()
+    assert reproject.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def test_kernel_wrappers_reject_bad_inputs(dev):
+    feats = torch.zeros(4, 16, 8, device=dev)
+    xy = torch.zeros(4, 10, device=dev)
+    with pytest.raises(TypeError):
+        unproject.bilinear_gather_fused(feats.half(), xy, xy, 4, 4, 2)
+    with pytest.raises(ValueError):
+        unproject.bilinear_gather_fused(feats, xy.double(), xy, 4, 4, 2)
+    with pytest.raises(ValueError):
+        unproject.bilinear_gather_fused(feats[:, ::2], xy, xy, 2, 4, 2)
+    with pytest.raises(NotImplementedError):
+        unproject.bilinear_gather_fused(feats.requires_grad_(), xy, xy, 4, 4,
+                                        2)
+    grid = torch.zeros(1, 2, 2, 2, 8, device=dev)
+    gxy = torch.zeros(1, 2, 4, device=dev)
+    with pytest.raises(ValueError):
+        reproject.zslice_gather(grid, gxy, gxy, np.array([0, 2]))
+    with pytest.raises(NotImplementedError):
+        reproject.zslice_gather(grid.requires_grad_(), gxy, gxy,
+                                np.array([0, 1]))
