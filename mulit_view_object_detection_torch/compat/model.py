@@ -1,50 +1,74 @@
-"""Matterport-style engine API over the PyTorch model, inference only.
+"""Matterport-style engine API over the PyTorch model: inference and
+training.
 
 Port of `mulit_view_object_detection_tpu/compat/model.py`:
-`MaskRCNN(mode, config, model_dir, device=...)` with `detect(images,
-Rcam, Kmat)`, `mold_inputs` / `unmold_detections` (the same contract as
-the JAX engine; molding and unmolding reuse the JAX package's jax-free
-`data/molding.py`), weights from the JAX package's flax variables
-(`load_flax_variables`) or a seeded initialisation (`init_weights`).
+`MaskRCNN(mode, config, model_dir, device="cuda")` with `detect(images,
+Rcam, Kmat)`, `mold_inputs` / `unmold_detections` (the JAX engine's
+contract; molding from the port's numpy copy `data/molding.py`),
+`train(...)`, `save_weights` / `load_weights` (checkpoint directories),
+`find_last` and `set_log_dir`. The engine runs on the card unless the
+caller asks for the CPU. Weights start from flax's initialisation scheme
+drawn from seed 0 (the JAX engine starts from PRNGKey(0)), and can come
+from the JAX package's flax variables (`load_flax_variables`) or a seeded
+`init_weights`.
 """
 
 from __future__ import annotations
 
+import datetime
+import logging
+import os
+
 import numpy as np
 import torch
 
-from mulit_view_object_detection_tpu.data.molding import (mold_image,
-                                                          resize_image,
-                                                          unmold_mask)
-
 from ..config import Config  # noqa: F401  (re-export)
+from ..data.generator import BatchPrefetcher, make_batch
+from ..data.molding import mold_image, resize_image, unmold_mask
 from ..models.detector import MaskRCNN as _Model
 from ..ops.anchors import get_anchors
 from ..ops.boxes import denorm_boxes_np, norm_boxes_np
 from ..ops.image_meta import compose_image_meta
+from ..train.checkpoint import (latest_step, restore_checkpoint,
+                                save_checkpoint)
+from ..train.optim import make_optimizer
+from ..train.step import train_step, val_step
+from ..train.trainable import trainable_mask
 from ..utils.convert import flax_to_torch
+
+log = logging.getLogger(__name__)
+
+# batch keys the device needs, with their dtypes (anchors are shared)
+_BATCH_DTYPES = {"images": torch.float32, "image_meta": torch.float32,
+                 "anchors": torch.float32, "Rcam": torch.float32,
+                 "Kmat": torch.float32, "rpn_match": torch.int64,
+                 "rpn_bbox": torch.float32, "gt_class_ids": torch.int64,
+                 "gt_boxes": torch.float32, "gt_masks": torch.float32}
 
 
 class MaskRCNN:
-    """Engine wrapper. Only mode="inference" is ported."""
+    """Engine wrapper: mode in {"training", "inference"}."""
 
-    def __init__(self, mode, config, model_dir, device="cpu"):
-        if mode == "training":
-            raise NotImplementedError(
-                "training is slice 2 of the PyTorch port and is not ported "
-                "yet; use mode='inference'")
-        if mode != "inference":
-            raise ValueError(f"mode must be 'inference', got {mode!r}")
+    def __init__(self, mode, config, model_dir, device="cuda"):
+        if mode not in ("training", "inference"):
+            raise ValueError(
+                f"mode must be 'training' or 'inference', got {mode!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device!r} requested but torch.cuda.is_available() "
-                f"is False")
+                f"is False; pass device='cpu' to run on the CPU")
         self.mode = mode
         self.config = config
         self.model_dir = model_dir
-        self.model = _Model(config).to(self.device).eval()
+        model = _Model(config)
+        model.init_weights(torch.Generator().manual_seed(0))
+        self.model = model.to(self.device).eval()
+        self.epoch = 0
         self._anchors = {}
+        # ROI sampling priorities of the train and validation steps
+        self._sampling = torch.Generator(self.device).manual_seed(0)
+        self.set_log_dir()
 
     # ------------------------------------------------------------------ #
     # weights
@@ -60,6 +84,60 @@ class MaskRCNN:
         nested dicts of numpy arrays); every parameter must match."""
         self.model.load_state_dict(flax_to_torch(tree), strict=True)
         return self
+
+    def load_weights(self, filepath, by_name=True, exclude=None):
+        """Load a checkpoint directory written by `save_weights` or
+        `train` (its latest step), and resume the epoch count from it,
+        as the reference's load_weights does (model_multi.py:2642).
+        `exclude` keeps the current weights of those top-level modules.
+        Keras .h5 files are not ported yet."""
+        if str(filepath).endswith((".h5", ".hdf5")):
+            raise NotImplementedError(
+                "loading Keras .h5 weights is not ported to PyTorch yet")
+        keep = {k: v.clone() for k, v in self.model.state_dict().items()
+                if exclude and k.split(".", 1)[0] in exclude}
+        if restore_checkpoint(filepath, self.model) is None:
+            raise FileNotFoundError(f"no checkpoint in {filepath}")
+        if keep:
+            self.model.load_state_dict(keep, strict=False)
+        self.set_log_dir(filepath)
+        return self
+
+    def save_weights(self, filepath, step=None):
+        """Save the weights as step `step` (default: the epoch count) of
+        the checkpoint directory `filepath`."""
+        return save_checkpoint(filepath, self.model,
+                               step=self.epoch if step is None else step)
+
+    def find_last(self):
+        """Newest checkpoint directory under model_dir (model.py:
+        2073-2100)."""
+        if os.path.isdir(self.model_dir):
+            names = [d for d in sorted(os.listdir(self.model_dir))
+                     if d.startswith((self.config.NAME or "").lower())]
+            for d in reversed(names):
+                ckpt = os.path.join(self.model_dir, d, "checkpoints")
+                if latest_step(ckpt) is not None:
+                    return ckpt
+        ckpt = os.path.join(self.log_dir, "checkpoints")
+        if latest_step(ckpt) is not None:
+            return ckpt
+        raise FileNotFoundError(
+            f"Could not find weight files in {self.model_dir}")
+
+    def set_log_dir(self, model_path=None):
+        """Epoch and log-directory bookkeeping (model.py:2245-2281): the
+        epoch is the checkpoint step of `model_path`, if it names one."""
+        self.epoch = 0
+        if model_path is not None:
+            step = latest_step(model_path)
+            if step is not None:
+                self.epoch = int(step)
+        name = (self.config.NAME or "maskrcnn").lower()
+        self.log_dir = os.path.join(
+            self.model_dir,
+            "{}{:%Y%m%dT%H%M}".format(name, datetime.datetime.now()))
+        self.checkpoint_dir = os.path.join(self.log_dir, "checkpoints")
 
     # ------------------------------------------------------------------ #
     # molding
@@ -172,3 +250,76 @@ class MaskRCNN:
                             "scores": scores, "masks": full_masks})
         return results
 
+    # ------------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------------ #
+    def to_device(self, batch):
+        """A host batch (make_batch's numpy dict) as tensors on the
+        engine's device."""
+        return {k: torch.as_tensor(np.asarray(batch[k])).to(
+            self.device, dt) for k, dt in _BATCH_DTYPES.items()}
+
+    def train(self, train_dataset, val_dataset, learning_rate, epochs,
+              layers, custom_callbacks=None, augmentation=None,
+              prefetch_threads=4, save_every_epochs=50):
+        """Stage-wise training loop (model_multi.py:2785-2912). `layers`
+        is 'heads' | 'grid+' | 'grid+-' | 'grid_only' | '3+' | '4+' | '5+'
+        | 'all' or a path regex; `epochs` is the TOTAL epoch target, so a
+        call continues from self.epoch.
+
+        Each call creates the optimizer afresh at `learning_rate`, so
+        momentum restarts, as every keras compile() of the reference does
+        (model_multi.py:2843-2850). After each epoch, VALIDATION_STEPS
+        batches of `val_dataset` are scored with the training graph and no
+        update; a checkpoint is written every `save_every_epochs` epochs
+        and after the last. `augmentation` is a callable (image, mask,
+        rng) -> (image, mask), see data.augment. Prints one line per
+        epoch."""
+        if self.mode != "training":
+            raise ValueError("create the engine in training mode to train")
+        cfg = self.config
+        model = self.model
+        mask = trainable_mask(model, layers)
+        for name, p in model.named_parameters():
+            p.requires_grad_(mask[name])
+        optimizer = make_optimizer(
+            [p for n, p in model.named_parameters() if mask[n]],
+            learning_rate, cfg.LEARNING_MOMENTUM)
+        prefetcher = BatchPrefetcher(
+            lambda seed: make_batch(train_dataset, cfg, rnd_state=seed,
+                                    augmentation=augmentation),
+            num_threads=prefetch_threads)
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        try:
+            for epoch in range(self.epoch, epochs):
+                acc = {}
+                for _ in range(cfg.STEPS_PER_EPOCH):
+                    metrics = train_step(model, optimizer,
+                                         self.to_device(next(prefetcher)),
+                                         cfg, mask, self._sampling)
+                    for k, v in metrics.items():
+                        acc.setdefault(k, []).append(v)
+                means = {k: float(np.mean(v)) for k, v in acc.items()}
+                if val_dataset is not None:
+                    vacc = {}
+                    for vstep in range(cfg.VALIDATION_STEPS):
+                        vbatch = make_batch(val_dataset, cfg,
+                                            rnd_state=epoch * 10007 + vstep)
+                        for k, v in val_step(model, self.to_device(vbatch),
+                                             cfg, self._sampling).items():
+                            vacc.setdefault(k, []).append(v)
+                    means.update({f"val_{k}": float(np.mean(v))
+                                  for k, v in vacc.items()})
+                log.info("epoch %d: %s", epoch + 1, means)
+                print(f"epoch {epoch + 1}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(means.items())),
+                    flush=True)
+                if (epoch + 1) % save_every_epochs == 0 or epoch + 1 == epochs:
+                    save_checkpoint(self.checkpoint_dir, model, optimizer,
+                                    step=epoch + 1)
+                if custom_callbacks:
+                    for cb in custom_callbacks:
+                        cb(epoch + 1, means)
+        finally:
+            prefetcher.close()
+        self.epoch = max(self.epoch, epochs)

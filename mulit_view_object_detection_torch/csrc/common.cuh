@@ -1,4 +1,5 @@
-// Shared helpers of the port's CUDA kernels: element type conversions.
+// Shared helpers of the port's CUDA kernels: element type conversions and
+// the float32 -> element type cast that ends each backward kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +33,25 @@ constexpr int kThreads = 256;
 
 inline unsigned int blocks_for(long long total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+}
+
+template <typename T>
+__global__ void cast_from_f32_kernel(const float* __restrict__ src,
+                                     T* __restrict__ dst, long long total) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < total) dst[i] = from_float<T>(src[i]);
+}
+
+// Write the float32 accumulator `src` into `dst` in type T: nothing to do
+// for float32 when dst is src, else one elementwise pass on `stream`.
+template <typename T>
+inline cudaError_t cast_from_f32(const float* src, void* dst,
+                                 long long total, cudaStream_t stream) {
+  if (total == 0 || static_cast<const void*>(src) == dst) return cudaSuccess;
+  cast_from_f32_kernel<T><<<blocks_for(total), kThreads, 0, stream>>>(
+      src, static_cast<T*>(dst), total);
+  return cudaGetLastError();
 }
 
 }  // namespace mvod

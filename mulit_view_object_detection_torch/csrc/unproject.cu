@@ -21,6 +21,23 @@
 // when its neighbour is in bounds); the floor is floorf, not truncation,
 // so x in (-1, 0) gives tap x0 = -1 (invalid) and x0 + 1 = 0 (valid); at
 // fw == 1 the x0+1 and y0+1 taps stay separate taps.
+//
+// Backward (mvod_unproject_fused_bwd) replaces the Pallas TPU kernel
+// unproject_pallas.py::_bwd_kernel, reached from _bwd_rule_fused, which
+// computed dfeats = W^T g as a one-hot [P, tile] x [tile, C] matmul per
+// voxel tile and accumulated it across tiles in VMEM. Here the scatter is
+// direct: one thread per element of g [B, N, V*C] (voxel, view, channel;
+// channel fastest, so a warp reads g contiguously). Where the saved ReLU
+// output is > 0 (the mask of _bwd_rule_fused) it recomputes the forward's
+// four tap weights with the same rounded operations and atomically adds
+// g * w into a float32 [B*V, fh*fw, C] buffer; a bfloat16 gradient is
+// cast from that buffer once, in a second pass. The function must read g
+// and the saved output (2 x 16.4 MB in bf16 at P4, B=1, V=2, C=64, 40^3)
+// and write a small dfeats (0.8 MB at P4), so it is bound by those reads
+// (~10 us at 3.35 TB/s); at P6 about 640 voxels land in each of the 100
+// pixels, so same-address atomics there are the expected slow spot.
+// Float atomics sum in no fixed order: the result varies run to run in
+// the last bits, and is held to the plain version with a tolerance.
 
 #include <climits>
 
@@ -79,6 +96,56 @@ __global__ void unproject_fused_kernel(const T* __restrict__ feats,
   out[i] = from_float<T>(acc);
 }
 
+template <typename I>
+__device__ __forceinline__ void scatter_tap(float* dmap, float yi, float xi,
+                                            float wgt, float gi, int fh,
+                                            int fw, int c) {
+  if (!((yi >= 0.f) && (yi < static_cast<float>(fh)) && (xi >= 0.f) &&
+        (xi < static_cast<float>(fw))))
+    return;
+  const I idx = static_cast<I>(yi) * fw + static_cast<I>(xi);
+  atomicAdd(dmap + idx * c, __fmul_rn(gi, wgt));
+}
+
+template <typename T, typename I>
+__global__ void unproject_fused_bwd_kernel(const T* __restrict__ g,
+                                           const T* __restrict__ saved,
+                                           const float* __restrict__ xs,
+                                           const float* __restrict__ ys,
+                                           float* __restrict__ dfeats, int v,
+                                           int fh, int fw, int c, int n,
+                                           int relu, I total) {
+  const I i = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  // ReLU mask: only outputs > 0 pass their gradient (NaN does not)
+  if (relu && !(to_float(saved[i]) > 0.f)) return;
+  const float gi = to_float(g[i]);
+  const int ch = static_cast<int>(i % c);
+  I r = i / c;
+  const int view = static_cast<int>(r % v);
+  r /= v;
+  const I vox = r % n;
+  const I b = r / n;
+  const I bv = b * v + view;
+
+  const float x = xs[bv * n + vox];
+  const float y = ys[bv * n + vox];
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float lx = __fsub_rn(x, x0);
+  const float ly = __fsub_rn(y, y0);
+  const float hx = __fsub_rn(1.f, lx);
+  const float hy = __fsub_rn(1.f, ly);
+  const float x1 = __fadd_rn(x0, 1.f);
+  const float y1 = __fadd_rn(y0, 1.f);
+
+  float* dmap = dfeats + bv * fh * fw * c + ch;
+  scatter_tap<I>(dmap, y0, x0, __fmul_rn(hy, hx), gi, fh, fw, c);
+  scatter_tap<I>(dmap, y0, x1, __fmul_rn(hy, lx), gi, fh, fw, c);
+  scatter_tap<I>(dmap, y1, x0, __fmul_rn(ly, hx), gi, fh, fw, c);
+  scatter_tap<I>(dmap, y1, x1, __fmul_rn(ly, lx), gi, fh, fw, c);
+}
+
 template <typename T>
 cudaError_t launch(const void* feats, const float* x, const float* y,
                    void* out, int b, int v, int fh, int fw, int c, int n,
@@ -98,6 +165,34 @@ cudaError_t launch(const void* feats, const float* x, const float* y,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_bwd(const void* g, const void* saved, const float* x,
+                       const float* y, float* acc, void* dfeats, int b, int v,
+                       int fh, int fw, int c, int n, int relu,
+                       cudaStream_t stream) {
+  const long long total = static_cast<long long>(b) * n * v * c;
+  const long long feat_elems = static_cast<long long>(b) * v * fh * fw * c;
+  cudaError_t err =
+      cudaMemsetAsync(acc, 0, feat_elems * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  const T* gt = static_cast<const T*>(g);
+  const T* st = static_cast<const T*>(saved);
+  if (total > 0) {
+    if (total <= INT_MAX && feat_elems <= INT_MAX)
+      unproject_fused_bwd_kernel<T, int>
+          <<<blocks_for(total), kThreads, 0, stream>>>(
+              gt, st, x, y, acc, v, fh, fw, c, n, relu,
+              static_cast<int>(total));
+    else
+      unproject_fused_bwd_kernel<T, long long>
+          <<<blocks_for(total), kThreads, 0, stream>>>(
+              gt, st, x, y, acc, v, fh, fw, c, n, relu, total);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cast_from_f32<T>(acc, dfeats, feat_elems, stream);
+}
+
 }  // namespace
 }  // namespace mvod
 
@@ -114,4 +209,24 @@ extern "C" int mvod_unproject_fused(const void* feats, const float* x,
         feats, x, y, out, b, v, fh, fw, c, n, relu, s));
   return static_cast<int>(
       mvod::launch<float>(feats, x, y, out, b, v, fh, fw, c, n, relu, s));
+}
+
+// Gradient of mvod_unproject_fused with respect to feats. g and saved (the
+// forward's output; read only when relu != 0, else may be null) are
+// [B, N, V*C] in the feature type; x, y [B*V, N] float32; acc a float32
+// [B*V, fh*fw, C] buffer that is zeroed and accumulated into; dfeats
+// [B*V, fh*fw, C] in the feature type (for float32 it may be acc itself,
+// and is then left as is). All contiguous on the current device.
+// Returns the cudaError_t of the launches (0 = success).
+extern "C" int mvod_unproject_fused_bwd(const void* g, const void* saved,
+                                        const float* x, const float* y,
+                                        float* acc, void* dfeats, int b,
+                                        int v, int fh, int fw, int c, int n,
+                                        int relu, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return static_cast<int>(mvod::launch_bwd<__nv_bfloat16>(
+        g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, s));
+  return static_cast<int>(mvod::launch_bwd<float>(
+      g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, s));
 }

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources in `csrc/` are compiled by nvcc, at first use, into one
-shared library with a plain C interface under `build/kernels/` at the
-root of the checkout, and loaded with ctypes. The file name carries a
+The sources in `csrc/` are compiled by nvcc at first use, one nvcc per
+source, all started together, and linked into one shared library with a
+plain C interface under `build/kernels/` at the root of the checkout,
+loaded with ctypes. The file name carries a
 hash of the sources and flags, so an edited source is rebuilt. A failed
 build raises: nothing falls back to the plain versions.
 """
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,12 @@ _SIGNATURES = {
     # grid, xg, yg, iz (host), out, b, nx, ny, nz, c, s_d, npix, is_bf16,
     # stream
     "mvod_reproject_nearest": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, is_bf16,
+    # stream
+    "mvod_unproject_fused_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # g, xg, yg, iz (host), acc, dgrid, b, nx, ny, nz, c, s_d, npix,
+    # is_bf16, stream
+    "mvod_reproject_nearest_bwd": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -56,24 +63,39 @@ def library_path():
 
 
 def build():
-    """Compile csrc/*.cu into library_path(); returns nvcc's output."""
+    """Compile csrc/*.cu into library_path(): one nvcc per source, all
+    started together, then one link. Returns nvcc's output."""
     target = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        log = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so, target)
+    return "".join(log) + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)

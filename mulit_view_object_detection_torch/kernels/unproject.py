@@ -1,19 +1,24 @@
-"""Fused voxel-grid unprojection on the GPU (CUDA kernel).
+"""Fused voxel-grid unprojection on the GPU (CUDA kernels), with gradient.
 
-Replaces the Pallas TPU kernel
-`mulit_view_object_detection_tpu/kernels/unproject_pallas.py::
-bilinear_gather_fused`; source `csrc/unproject.cu`. The TPU kernel recast
-the 4-tap bilinear gather as a one-hot matmul for the MXU (O(N*P*C)
-work); on Hopper each output element is at most 4 loads, so the kernel is
-bound by the bytes it writes, and its design is one thread per output
-element with channel-contiguous loads and stores.
+Replaces the Pallas TPU kernels of
+`mulit_view_object_detection_tpu/kernels/unproject_pallas.py`:
+`bilinear_gather_fused` (forward, `_fwd_kernel_fused`) and its backward
+(`_bwd_kernel`, reached from `_bwd_rule_fused`); source `csrc/unproject.cu`.
+The TPU kernels recast the 4-tap bilinear gather and its transpose as
+one-hot matmuls for the MXU (O(N*P*C) work); on Hopper each output element
+is at most 4 loads, and each gradient element at most 4 atomic adds, so
+both kernels are bound by bytes, one thread per element of the
+`[B, N, V*C]` tensor, channel fastest.
 
 Output layout: channels-last `[B, nx, ny, nz, V*C]`, the JAX layout. The
 conv3d U-Net reads it as `[B, V*C, nx, ny, nz]` in torch.channels_last_3d
 memory format (a permuted view, no copy).
 
-The wrapper takes the plain version (`ops/projection.py`) for a CPU
-tensor only; for a CUDA tensor it launches the kernel or raises.
+`bilinear_gather_fused` is differentiable in `feats` (a
+torch.autograd.Function, as `jax.custom_vjp` is in the JAX package); the
+coordinates carry no gradient. Each wrapper takes the plain version
+(`ops/projection.py`) for a CPU tensor only; for a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,36 +28,43 @@ import torch
 from ..ops import projection as plain
 from .build import check_launch, library
 
-# Launches of the CUDA kernel in this process (plain CPU calls not counted).
+# Launches of the CUDA kernels in this process (plain CPU calls not
+# counted): the forward and the backward.
 launches = 0
+bwd_launches = 0
 
 
-def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
-    """feats [B*V, fh*fw, C] float32/bfloat16; x, y [B*V, N] float32.
-    Returns [B, N, V*C] in feats' dtype (see ops/projection.py)."""
+def _check_device(t, what):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unproject kernel: unsupported device {t.device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unproject kernel: {what} dtype {t.dtype}")
+
+
+def _check_coords(x, y, bv, n, device):
+    for name, t in (("x", x), ("y", y)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (bv, n) \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"unproject kernel: {name} must be contiguous "
+                             f"float32 [{bv}, {n}] on {device}")
+
+
+def gather_fused(feats, x, y, fh, fw, v, relu=True):
+    """Forward only. feats [B*V, fh*fw, C] float32/bfloat16; x, y
+    [B*V, N] float32. Returns [B, N, V*C] in feats' dtype (see
+    ops/projection.py::bilinear_gather_fused)."""
     global launches
+    _check_device(feats, "feats")
     if feats.device.type == "cpu":
         return plain.bilinear_gather_fused(feats, x, y, fh, fw, v, relu)
-    if feats.device.type != "cuda":
-        raise ValueError(f"unproject kernel: unsupported device {feats.device}")
     bv, p, c = feats.shape
     n = x.shape[1]
-    if feats.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"unproject kernel: feats dtype {feats.dtype}")
-    if torch.is_grad_enabled() and feats.requires_grad:
-        raise NotImplementedError(
-            "unproject kernel: no backward kernel yet (training is slice 2)")
     if p != fh * fw or bv % v:
         raise ValueError(f"unproject kernel: feats {tuple(feats.shape)} vs "
                          f"fh={fh} fw={fw} v={v}")
-    for name, t in (("x", x), ("y", y)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (bv, n) \
-                or t.device != feats.device:
-            raise ValueError(f"unproject kernel: {name} must be float32 "
-                             f"[{bv}, {n}] on {feats.device}")
-    for t in (feats, x, y):
-        if not t.is_contiguous():
-            raise ValueError("unproject kernel: inputs must be contiguous")
+    if not feats.is_contiguous():
+        raise ValueError("unproject kernel: feats must be contiguous")
+    _check_coords(x, y, bv, n, feats.device)
     out = torch.empty((bv // v, n, v * c), dtype=feats.dtype,
                       device=feats.device)
     with torch.cuda.device(feats.device):
@@ -66,6 +78,64 @@ def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
     return out
 
 
+def gather_fused_bwd(g, saved, x, y, fh, fw, v, relu=True):
+    """Gradient of `gather_fused` with respect to feats. g and saved (its
+    output, read when relu) [B, N, V*C]; x, y [B*V, N] float32. Returns
+    dfeats [B*V, fh*fw, C] in g's dtype, summed in float32 (atomics on
+    the card, so the last bits vary from run to run)."""
+    global bwd_launches
+    _check_device(g, "g")
+    if g.device.type == "cpu":
+        return plain.bilinear_gather_fused_bwd(g, saved, x, y, fh, fw, v,
+                                               relu, g.dtype)
+    b, n, vc = g.shape
+    if vc % v:
+        raise ValueError(f"unproject bwd: g {tuple(g.shape)} vs v={v}")
+    c = vc // v
+    if relu and (saved is None or saved.shape != g.shape
+                 or saved.dtype != g.dtype or saved.device != g.device):
+        raise ValueError("unproject bwd: relu needs the forward's output, "
+                         "shaped and typed as g")
+    g = g.contiguous()
+    saved = saved.contiguous() if relu else None
+    _check_coords(x, y, b * v, n, g.device)
+    acc = torch.empty((b * v, fh * fw, c), dtype=torch.float32,
+                      device=g.device)
+    dfeats = acc if g.dtype == torch.float32 else torch.empty_like(
+        acc, dtype=g.dtype)
+    with torch.cuda.device(g.device):
+        err = library().mvod_unproject_fused_bwd(
+            g.data_ptr(), saved.data_ptr() if relu else None,
+            x.data_ptr(), y.data_ptr(), acc.data_ptr(), dfeats.data_ptr(),
+            b, v, fh, fw, c, n, int(relu), int(g.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(err, "mvod_unproject_fused_bwd")
+    bwd_launches += 1
+    return dfeats
+
+
+class _GatherFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, x, y, fh, fw, v, relu):
+        out = gather_fused(feats, x, y, fh, fw, v, relu)
+        ctx.geometry = (fh, fw, v, relu)
+        ctx.save_for_backward(x, y, out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, saved = ctx.saved_tensors
+        fh, fw, v, relu = ctx.geometry
+        return (gather_fused_bwd(g, saved, x, y, fh, fw, v, relu),
+                None, None, None, None, None, None)
+
+
+def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
+    """Differentiable `gather_fused`: feats [B*V, fh*fw, C]; x, y [B*V, N]
+    float32 (no gradient). Returns [B, N, V*C] in feats' dtype."""
+    return _GatherFused.apply(feats, x, y, fh, fw, v, relu)
+
+
 def unproject_features_fused(feats, Rcam, Kmat, image_shape, grid_pts,
                              grid_shape, relu=True):
     """Lift every view's features into the voxel grid.
@@ -73,11 +143,12 @@ def unproject_features_fused(feats, Rcam, Kmat, image_shape, grid_pts,
     feats [B, V, fh, fw, C]; Rcam [B, V, 3, 4]; Kmat [B, 3, 3]; grid_pts
     [4, N] tensor from voxel_grid_points; grid_shape (nx, ny, nz).
     Returns [B, nx, ny, nz, V*C]: the views concatenated on channels and
-    relu'd, the layout the conv3d U-Net reads."""
+    relu'd, the layout the conv3d U-Net reads; differentiable in feats."""
     b, v, fh, fw, c = feats.shape
     nx, ny, nz = grid_shape
-    x, y = plain.project_voxel_coords(Rcam, Kmat, image_shape, grid_pts,
-                                      fh, fw)
+    with torch.no_grad():
+        x, y = plain.project_voxel_coords(Rcam, Kmat, image_shape, grid_pts,
+                                          fh, fw)
     out = bilinear_gather_fused(
         feats.reshape(b * v, fh * fw, c), x.contiguous(), y.contiguous(),
         fh, fw, v, relu)

@@ -1,4 +1,4 @@
-"""Multi-view Mask R-CNN, inference.
+"""Multi-view Mask R-CNN, inference and training.
 
 Port of `mulit_view_object_detection_tpu/models/detector.py`. One module
 covers the variants the port runs, switched by config:
@@ -14,10 +14,18 @@ covers the variants the port runs, switched by config:
 
 Views fold into the batch axis for backbone/FPN; the RPN on a zeroed
 level is evaluated on a 1x1 zero tile and tiled (exact: a conv stack on
-an all-zero input is spatially constant). COMPUTE_DTYPE "bfloat16" keeps
-the convolutions' weights and the activations in bf16, as flax's
-`dtype=` does; BatchNorm parameters and statistics, geometry, scores and
-boxes stay float32.
+an all-zero input is spatially constant). The dtype policy is flax's:
+every parameter is float32, and under COMPUTE_DTYPE "bfloat16" the
+convolutions cast their weights and inputs to bf16 at use
+(`models/layers.py`), so activations are bf16; BatchNorm normalises in
+float32, and geometry, scores, boxes and losses stay float32.
+
+`forward(batch, training=True)` is the training graph of the JAX module
+(detector.py:166-241): proposals at POST_NMS_ROIS_TRAINING with their
+gradient stopped, then `ops/targets.py::detection_targets_batch` samples
+the head ROIs with the priorities the batch carries, and both heads run
+on them. Gradients flow through the two geometry gathers into the
+backward kernels (or, on the CPU, their plain versions).
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from ..ops.image_meta import parse_image_meta
 from ..ops.projection import voxel_grid_points
 from ..ops.proposals import generate_proposals
 from ..ops.roi_align import pyramid_roi_align
+from ..ops.targets import detection_targets_batch
 from .fpn import FPN
 from .fusion import DepthCollapse, GridFusion
 from .heads import ClassifierHead, MaskHead
+from .layers import set_compute_dtype
 from .resnet import BatchNorm, ResNet
 from .rpn import RPNHead
 
@@ -80,10 +90,7 @@ class MaskRCNN(nn.Module):
         self.mask_head = MaskHead(c, cfg.NUM_CLASSES,
                                   128 if self.multiview else 256)
         self._grid_pts = {}
-        self.to(self.compute_dtype)
-        for mod in self.modules():            # flax keeps BN in float32
-            if isinstance(mod, BatchNorm):
-                mod.float()
+        set_compute_dtype(self, self.compute_dtype)
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -115,12 +122,19 @@ class MaskRCNN(nn.Module):
                 voxel_grid_points(self.config)).to(device)
         return self._grid_pts[device]
 
-    @torch.no_grad()
-    def forward(self, batch):
+    def forward(self, batch, training=False):
         """batch: images [B, V, H, W, 3] molded float; image_meta
         [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
-        [B, 3, 3] float32 (multi-view). All tensors on the model's device.
-        Returns the JAX module's inference outputs."""
+        [B, 3, 3] float32 (multi-view). Training adds gt_class_ids [B, G],
+        gt_boxes [B, G, 4] normalized, gt_masks [B, G, mh, mw], and the
+        ROI sampling priorities pos_priority, neg_priority
+        [B, POST_NMS_ROIS_TRAINING] uniform in [0, 1). All tensors on the
+        model's device. Returns the JAX module's outputs for the mode.
+        Inference computes no gradient."""
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            return self._forward(batch, training)
+
+    def _forward(self, batch, training):
         cfg = self.config
         images = batch["images"]
         b, v, h, w, _ = images.shape
@@ -148,14 +162,49 @@ class MaskRCNN(nn.Module):
             deltas_l.append(outs[2])
         rpn_probs = torch.cat(probs_l, dim=1)
         rpn_bbox = torch.cat(deltas_l, dim=1)
+        # proposals carry no gradient (model.py:409-410)
         proposals = generate_proposals(
-            rpn_probs, rpn_bbox, batch["anchors"],
-            proposal_count=cfg.POST_NMS_ROIS_INFERENCE,
+            rpn_probs.detach(), rpn_bbox.detach(), batch["anchors"],
+            proposal_count=(cfg.POST_NMS_ROIS_TRAINING if training
+                            else cfg.POST_NMS_ROIS_INFERENCE),
             nms_threshold=cfg.RPN_NMS_THRESHOLD,
             pre_nms_limit=cfg.PRE_NMS_LIMIT,
             bbox_std_dev=np.asarray(cfg.RPN_BBOX_STD_DEV))
+        outputs = {
+            "rpn_class_logits": torch.cat(logits_l, dim=1),
+            "rpn_probs": rpn_probs,
+            "rpn_bbox": rpn_bbox,
+            "proposals": proposals,
+        }
 
         mrcnn_maps = [fm.permute(0, 2, 3, 1) for fm in fmaps[:4]]
+        if training:
+            rois, tcls, tdeltas, tmasks = detection_targets_batch(
+                proposals, batch["gt_class_ids"], batch["gt_boxes"],
+                batch["gt_masks"], batch["pos_priority"],
+                batch["neg_priority"],
+                train_rois_per_image=cfg.TRAIN_ROIS_PER_IMAGE,
+                roi_positive_ratio=cfg.ROI_POSITIVE_RATIO,
+                mask_shape=tuple(cfg.MASK_SHAPE),
+                use_mini_mask=cfg.USE_MINI_MASK,
+                bbox_std_dev=np.asarray(cfg.BBOX_STD_DEV))
+            pooled = pyramid_roi_align(rois, mrcnn_maps, (h, w),
+                                       cfg.POOL_SIZE)
+            logits, probs, bbox = self.classifier_head(pooled)
+            pooled_m = pyramid_roi_align(rois, mrcnn_maps, (h, w),
+                                         cfg.MASK_POOL_SIZE)
+            outputs.update({
+                "rois": rois,
+                "target_class_ids": tcls,
+                "target_deltas": tdeltas,
+                "target_masks": tmasks,
+                "mrcnn_class_logits": logits,
+                "mrcnn_probs": probs,
+                "mrcnn_bbox": bbox,
+                "mrcnn_masks": self.mask_head(pooled_m),
+            })
+            return outputs
+
         pooled = pyramid_roi_align(proposals, mrcnn_maps, (h, w),
                                    cfg.POOL_SIZE)
         logits, probs, bbox = self.classifier_head(pooled)
@@ -169,17 +218,14 @@ class MaskRCNN(nn.Module):
             detection_nms_threshold=cfg.DETECTION_NMS_THRESHOLD)
         pooled_m = pyramid_roi_align(detections[..., :4], mrcnn_maps, (h, w),
                                      cfg.MASK_POOL_SIZE)
-        return {
-            "rpn_class_logits": torch.cat(logits_l, dim=1),
-            "rpn_probs": rpn_probs,
-            "rpn_bbox": rpn_bbox,
-            "proposals": proposals,
+        outputs.update({
             "mrcnn_class_logits": logits,
             "mrcnn_probs": probs,
             "mrcnn_bbox": bbox,
             "detections": detections,
             "mrcnn_masks": self.mask_head(pooled_m),
-        }
+        })
+        return outputs
 
     def _fuse_views(self, batch, levels, b, v, image_shape):
         """levels: 5 maps [B*V, C, h, w]. Returns ([P2..P6] as

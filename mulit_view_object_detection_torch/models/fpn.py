@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d
+
 
 def upsample2x(x):
     """Nearest-neighbour x2 (KL.UpSampling2D)."""
@@ -22,12 +24,12 @@ class FPN(nn.Module):
         super().__init__()
         k = out_channels
         self.post_relu = post_relu
-        self.fpn_c5p5 = nn.Conv2d(2048, k, 1)
-        self.fpn_c4p4 = nn.Conv2d(1024, k, 1)
-        self.fpn_c3p3 = nn.Conv2d(512, k, 1)
-        self.fpn_c2p2 = nn.Conv2d(256, k, 1)
+        self.fpn_c5p5 = Conv2d(2048, k, 1)
+        self.fpn_c4p4 = Conv2d(1024, k, 1)
+        self.fpn_c3p3 = Conv2d(512, k, 1)
+        self.fpn_c2p2 = Conv2d(256, k, 1)
         for i in (2, 3, 4, 5):
-            self.add_module(f"fpn_p{i}", nn.Conv2d(k, k, 3, padding=1))
+            self.add_module(f"fpn_p{i}", Conv2d(k, k, 3, padding=1))
 
     def forward(self, c2, c3, c4, c5):
         p5 = self.fpn_c5p5(c5)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, Conv3d, ConvTranspose3d
 from .resnet import BatchNorm, pad_same
 
 
@@ -38,13 +39,13 @@ class GridFusion(nn.Module):
     def __init__(self, channels, num_views):
         super().__init__()
         c = channels
-        self.down1 = nn.Conv3d(num_views * c, 2 * c, 3, stride=2)
+        self.down1 = Conv3d(num_views * c, 2 * c, 3, stride=2)
         self.bn1 = BatchNorm(2 * c)
-        self.down2 = nn.Conv3d(2 * c, 4 * c, 3, stride=2)
+        self.down2 = Conv3d(2 * c, 4 * c, 3, stride=2)
         self.bn2 = BatchNorm(4 * c)
-        self.up1 = nn.ConvTranspose3d(4 * c, 2 * c, 3, stride=2)
+        self.up1 = ConvTranspose3d(4 * c, 2 * c, 3, stride=2)
         self.bn_up1 = BatchNorm(2 * c)
-        self.up2 = nn.ConvTranspose3d(4 * c, c, 3, stride=2)
+        self.up2 = ConvTranspose3d(4 * c, c, 3, stride=2)
         self.bn_up2 = BatchNorm(c)
 
     def forward(self, x):
@@ -64,11 +65,11 @@ class DepthCollapse(nn.Module):
     def __init__(self, channels, samples):
         super().__init__()
         feat = channels * samples
-        self.dw1 = nn.Conv2d(feat, feat, 1, groups=feat)
-        self.pw1 = nn.Conv2d(feat, 512, 1)
+        self.dw1 = Conv2d(feat, feat, 1, groups=feat)
+        self.pw1 = Conv2d(feat, 512, 1)
         self.bn1 = BatchNorm(512)
-        self.dw2 = nn.Conv2d(512, 512, 1, groups=512)
-        self.pw2 = nn.Conv2d(512, channels, 1)
+        self.dw2 = Conv2d(512, 512, 1, groups=512)
+        self.pw2 = Conv2d(512, channels, 1)
         self.bn2 = BatchNorm(channels)
 
     def forward(self, rays):

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, ConvTranspose2d, Linear
 from .resnet import BatchNorm
 
 
@@ -28,13 +29,13 @@ class ClassifierHead(nn.Module):
                  fc_layers_size=1024):
         super().__init__()
         self.num_classes = num_classes
-        self.mrcnn_class_conv1 = nn.Conv2d(in_channels, fc_layers_size,
-                                           pool_size)
+        self.mrcnn_class_conv1 = Conv2d(in_channels, fc_layers_size,
+                                        pool_size)
         self.mrcnn_class_bn1 = BatchNorm(fc_layers_size)
-        self.mrcnn_class_conv2 = nn.Conv2d(fc_layers_size, fc_layers_size, 1)
+        self.mrcnn_class_conv2 = Conv2d(fc_layers_size, fc_layers_size, 1)
         self.mrcnn_class_bn2 = BatchNorm(fc_layers_size)
-        self.mrcnn_class_logits = nn.Linear(fc_layers_size, num_classes)
-        self.mrcnn_bbox_fc = nn.Linear(fc_layers_size, num_classes * 4)
+        self.mrcnn_class_logits = Linear(fc_layers_size, num_classes)
+        self.mrcnn_bbox_fc = Linear(fc_layers_size, num_classes * 4)
 
     def forward(self, pooled):
         """-> (logits [B, N, NC], probs [B, N, NC], bbox [B, N, NC, 4])."""
@@ -55,14 +56,14 @@ class MaskHead(nn.Module):
         cin = in_channels
         for i in range(1, 5):
             self.add_module(f"mrcnn_mask_conv{i}",
-                            nn.Conv2d(cin, conv_filters, 3, padding=1))
+                            Conv2d(cin, conv_filters, 3, padding=1))
             self.add_module(f"mrcnn_mask_bn{i}", BatchNorm(conv_filters))
             cin = conv_filters
         # flax ConvTranspose 2x2/2 SAME pads the dilated input (1, 1), as
         # torch's padding=0 does; the converter flips the kernel
-        self.mrcnn_mask_deconv = nn.ConvTranspose2d(conv_filters,
-                                                    conv_filters, 2, stride=2)
-        self.mrcnn_mask = nn.Conv2d(conv_filters, num_classes, 1)
+        self.mrcnn_mask_deconv = ConvTranspose2d(conv_filters,
+                                                 conv_filters, 2, stride=2)
+        self.mrcnn_mask = Conv2d(conv_filters, num_classes, 1)
 
     def forward(self, pooled):
         """-> masks [B, N, 2S, 2S, NC] (sigmoid, float32)."""

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d
+
 BLOCK_COUNTS = {"resnet50": 3, "resnet101": 22}
 
 
@@ -43,9 +45,8 @@ class BatchNorm(nn.Module):
     module's nn.BatchNorm (resnet.py:65-68). TRAIN_BN is not ported, so
     it never updates its statistics.
 
-    As in flax, its parameters and statistics are meant to stay float32
-    whatever the compute dtype (the detector casts them back after
-    `Module.to`): F.batch_norm then normalises a bfloat16 input in float32
+    As in flax, its parameters and statistics stay float32 whatever the
+    compute dtype: F.batch_norm normalises a bfloat16 input in float32
     and rounds once on output."""
 
     def __init__(self, channels, eps=1e-3):
@@ -67,15 +68,15 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, filters, stride=1, conv_shortcut=False):
         super().__init__()
         f1, f2, f3 = filters
-        self.conv2a = nn.Conv2d(cin, f1, 1, stride=stride)
+        self.conv2a = Conv2d(cin, f1, 1, stride=stride)
         self.bn2a = BatchNorm(f1)
-        self.conv2b = nn.Conv2d(f1, f2, 3, padding=1)
+        self.conv2b = Conv2d(f1, f2, 3, padding=1)
         self.bn2b = BatchNorm(f2)
-        self.conv2c = nn.Conv2d(f2, f3, 1)
+        self.conv2c = Conv2d(f2, f3, 1)
         self.bn2c = BatchNorm(f3)
         self.conv_shortcut = conv_shortcut
         if conv_shortcut:
-            self.conv1 = nn.Conv2d(cin, f3, 1, stride=stride)
+            self.conv1 = Conv2d(cin, f3, 1, stride=stride)
             self.bn1 = BatchNorm(f3)
 
     def forward(self, x):
@@ -93,7 +94,7 @@ class ResNet(nn.Module):
         super().__init__()
         if architecture not in BLOCK_COUNTS:
             raise ValueError(f"unknown backbone {architecture!r}")
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2)
+        self.conv1 = Conv2d(3, 64, 7, stride=2)
         self.bn_conv1 = BatchNorm(64)
         n4 = (stage4_blocks if stage4_blocks is not None
               else BLOCK_COUNTS[architecture])

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d
 from .resnet import pad_same
 
 
@@ -19,10 +20,10 @@ class RPNHead(nn.Module):
         super().__init__()
         k = anchors_per_location
         self.anchor_stride = anchor_stride
-        self.rpn_conv_shared = nn.Conv2d(in_channels, 512, 3,
-                                         stride=anchor_stride)
-        self.rpn_class_raw = nn.Conv2d(512, 2 * k, 1)
-        self.rpn_bbox_pred = nn.Conv2d(512, 4 * k, 1)
+        self.rpn_conv_shared = Conv2d(in_channels, 512, 3,
+                                      stride=anchor_stride)
+        self.rpn_class_raw = Conv2d(512, 2 * k, 1)
+        self.rpn_bbox_pred = Conv2d(512, 4 * k, 1)
 
     def forward(self, fmap):
         """fmap [N, C, H, W] -> (logits [N, HWk, 2], probs [N, HWk, 2],

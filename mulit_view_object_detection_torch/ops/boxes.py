@@ -53,6 +53,24 @@ def overlaps(boxes1, boxes2):
     return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
 
 
+def box_refinement(box, gt_box):
+    """Deltas that take `box` onto `gt_box`, float32 (utils.py:442-465)."""
+    box = box.float()
+    gt_box = gt_box.float()
+    height = box[..., 2] - box[..., 0]
+    width = box[..., 3] - box[..., 1]
+    center_y = box[..., 0] + 0.5 * height
+    center_x = box[..., 1] + 0.5 * width
+    gt_height = gt_box[..., 2] - gt_box[..., 0]
+    gt_width = gt_box[..., 3] - gt_box[..., 1]
+    gt_center_y = gt_box[..., 0] + 0.5 * gt_height
+    gt_center_x = gt_box[..., 1] + 0.5 * gt_width
+    return torch.stack([(gt_center_y - center_y) / height,
+                        (gt_center_x - center_x) / width,
+                        torch.log(gt_height / height),
+                        torch.log(gt_width / width)], dim=-1)
+
+
 def norm_boxes(boxes, shape):
     """Pixel -> normalized coordinates, (h-1, w-1) convention."""
     h, w = shape[0], shape[1]
@@ -60,6 +78,60 @@ def norm_boxes(boxes, shape):
                              dtype=torch.float32)
     shift = boxes.new_tensor([0.0, 0.0, 1.0, 1.0], dtype=torch.float32)
     return (boxes.float() - shift) / scale
+
+
+# ---------------------------------------------------------------------------
+# numpy (host: dataset preparation), copies of the JAX package's
+# ---------------------------------------------------------------------------
+
+def compute_overlaps_np(boxes1, boxes2):
+    """Pairwise IoU [N1, N2] in float32, one broadcast (inputs cast to
+    float32 first, so the RPN matcher's exact tie compare sees the same
+    values whatever the callers' dtype)."""
+    c1 = np.ascontiguousarray(boxes1.T, dtype=np.float32)
+    c2 = np.ascontiguousarray(boxes2.T, dtype=np.float32)
+    ih = np.minimum.outer(c1[2], c2[2])
+    ih -= np.maximum.outer(c1[0], c2[0])
+    iw = np.minimum.outer(c1[3], c2[3])
+    iw -= np.maximum.outer(c1[1], c2[1])
+    np.clip(ih, 0, None, out=ih)
+    np.clip(iw, 0, None, out=iw)
+    ih *= iw
+    inter = ih
+    a1 = (c1[2] - c1[0]) * (c1[3] - c1[1])
+    a2 = (c2[2] - c2[0]) * (c2[3] - c2[1])
+    union = a1[:, None] + a2[None, :] - inter
+    return inter / union
+
+
+def _box_geometry_np(boxes):
+    """(centers [N, (cy, cx)], sizes [N, (h, w)]) of float32 boxes."""
+    sizes = boxes[:, 2:4] - boxes[:, 0:2]
+    return boxes[:, 0:2] + 0.5 * sizes, sizes
+
+
+def box_refinement_np(box, gt_box):
+    """Deltas taking `box` onto `gt_box` (utils.py:468-491)."""
+    centers, sizes = _box_geometry_np(box.astype(np.float32))
+    gt_centers, gt_sizes = _box_geometry_np(gt_box.astype(np.float32))
+    return np.concatenate(
+        [(gt_centers - centers) / sizes, np.log(gt_sizes / sizes)], axis=1)
+
+
+def extract_bboxes_np(mask):
+    """Tight boxes from masks [H, W, N] -> [N, (y1, x1, y2, x2)] int32,
+    bottom-right exclusive; an empty mask gives the zero box
+    (utils.py:293-316)."""
+    h, w, _ = mask.shape
+    cols = mask.any(axis=0)                      # [W, N]
+    rows = mask.any(axis=1)                      # [H, N]
+    x1 = cols.argmax(axis=0)
+    y1 = rows.argmax(axis=0)
+    x2 = w - cols[::-1].argmax(axis=0)           # last occupied col + 1
+    y2 = h - rows[::-1].argmax(axis=0)
+    boxes = np.stack([y1, x1, y2, x2], axis=1).astype(np.int32)
+    boxes[~cols.any(axis=0)] = 0
+    return boxes
 
 
 def _norm_coeffs(shape):

@@ -15,8 +15,9 @@ coordinate prologues of its Pallas wrappers
   * The reprojection's z index depends only on the depth sample, so it is
     computed on the host (`np.rint`), -1 meaning out of grid.
 
-The plain gathers here serve CPU tensors and are the oracles the CUDA
-kernels are held against on the card.
+The plain gathers and their plain backward scatters (explicit
+`index_add_` of what each output element read) serve CPU tensors and are
+the oracles the CUDA kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -114,8 +115,31 @@ def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
 
 
 # ---------------------------------------------------------------------------
-# Plain unprojection gather (oracle of kernels/unproject.py)
+# Plain unprojection gather and its backward (oracles of
+# kernels/unproject.py)
 # ---------------------------------------------------------------------------
+
+def _bilinear_taps(x, y, fh, fw):
+    """The four taps of every coordinate, in the kernels' order: a list of
+    (flat index [BV, N] int64, weight [BV, N] float32), an out-of-bounds
+    tap with weight 0 and index 0. Taps are tested one by one, the floor
+    is a floor (x in (-1, 0) keeps tap x0 + 1), and at fw == 1 the x0+1
+    and y0+1 taps stay separate."""
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    lx = x - x0f
+    ly = y - y0f
+    taps = []
+    for dy, dx, wgt in ((0, 0, (1 - ly) * (1 - lx)), (0, 1, (1 - ly) * lx),
+                        (1, 0, ly * (1 - lx)), (1, 1, ly * lx)):
+        yi = y0f + dy
+        xi = x0f + dx
+        valid = (yi >= 0) & (yi < fh) & (xi >= 0) & (xi < fw)
+        idx = (torch.where(valid, yi, 0.0).long() * fw
+               + torch.where(valid, xi, 0.0).long())
+        taps.append((idx, wgt * valid))
+    return taps
+
 
 def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
     """feats [B*V, fh*fw, C]; x, y [B*V, N] float32 feature-plane coords.
@@ -125,24 +149,10 @@ def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
     bv, p, c = feats.shape
     n = x.shape[1]
     f = feats.float()
-    x0f = torch.floor(x)
-    y0f = torch.floor(y)
-    lx = x - x0f
-    ly = y - y0f
-
-    def tap(dy, dx, wgt):
-        yi = y0f + dy
-        xi = x0f + dx
-        valid = (yi >= 0) & (yi < fh) & (xi >= 0) & (xi < fw)
-        idx = (torch.where(valid, yi, 0.0).long() * fw
-               + torch.where(valid, xi, 0.0).long())
+    out = 0.0
+    for idx, w in _bilinear_taps(x, y, fh, fw):
         vals = torch.gather(f, 1, idx[..., None].expand(bv, n, c))
-        return vals * (wgt * valid)[..., None]
-
-    out = (tap(0, 0, (1 - ly) * (1 - lx))
-           + tap(0, 1, (1 - ly) * lx)
-           + tap(1, 0, ly * (1 - lx))
-           + tap(1, 1, ly * lx))
+        out = out + vals * w[..., None]
     if relu:
         out = torch.relu(out)
     out = out.to(feats.dtype)
@@ -150,9 +160,48 @@ def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
         bv // v, n, v * c)
 
 
+def bilinear_gather_fused_bwd(g, saved, x, y, fh, fw, v, relu, dtype):
+    """Gradient of `bilinear_gather_fused` with respect to feats.
+
+    g, saved (the forward's output; read when relu) [B, N, V*C]; x, y
+    [B*V, N]. Where the output is > 0 (with relu), each element's g times
+    each tap weight is added into the tap it was read from, in float32.
+    Returns dfeats [B*V, fh*fw, C] in `dtype`."""
+    b, n, vc = g.shape
+    c = vc // v
+    gf = g.float()
+    if relu:
+        gf = torch.where(saved > 0, gf, 0.0)
+    gbv = gf.reshape(b, n, v, c).transpose(1, 2).reshape(b * v, n, c)
+    p = fh * fw
+    base = torch.arange(b * v, device=g.device)[:, None] * p
+    df = torch.zeros(b * v * p, c, dtype=torch.float32, device=g.device)
+    for idx, w in _bilinear_taps(x, y, fh, fw):
+        df.index_add_(0, (base + idx).reshape(-1),
+                      (gbv * w[..., None]).reshape(-1, c))
+    return df.reshape(b * v, p, c).to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# Plain reprojection gather (oracle of kernels/reproject.py)
+# Plain reprojection gather and its backward (oracles of
+# kernels/reproject.py)
 # ---------------------------------------------------------------------------
+
+def _nearest_voxels(xg, yg, iz, nx, ny, nz):
+    """Flat voxel index [B, S_d, npix] (x-major, z fastest) of every
+    sample's nearest voxel in slice iz[s], rounded half-to-even, and
+    whether it lies in the grid (iz[s] >= 0 and x, y in bounds); index 0
+    where it does not."""
+    izt = torch.as_tensor(np.asarray(iz, np.int64),
+                          device=xg.device)[None, :, None]
+    ix = torch.round(xg)
+    iy = torch.round(yg)
+    valid = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny) & (izt >= 0)
+    idx = ((torch.where(valid, ix, 0.0).long() * ny
+            + torch.where(valid, iy, 0.0).long()) * nz
+           + torch.where(valid, izt, 0))
+    return idx, valid
+
 
 def zslice_gather(grid, xg, yg, iz):
     """grid [B, nx, ny, nz, C]; xg, yg [B, S_d, npix] float32; iz [S_d]
@@ -161,16 +210,24 @@ def zslice_gather(grid, xg, yg, iz):
     the voxel is out of the grid. A copy, exact in any dtype."""
     b, nx, ny, nz, c = grid.shape
     s_d, npix = xg.shape[1], xg.shape[2]
-    izt = torch.as_tensor(np.asarray(iz, np.int64),
-                          device=grid.device)[None, :, None]
-    ix = torch.round(xg)
-    iy = torch.round(yg)
-    valid = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny) & (izt >= 0)
-    idx = ((torch.where(valid, ix, 0.0).long() * ny
-            + torch.where(valid, iy, 0.0).long()) * nz
-           + torch.where(valid, izt, 0))
+    idx, valid = _nearest_voxels(xg, yg, iz, nx, ny, nz)
     vals = torch.gather(grid.reshape(b, nx * ny * nz, c), 1,
                         idx.reshape(b, s_d * npix, 1).expand(-1, -1, c))
     vals = vals.reshape(b, s_d, npix, c)
     return torch.where(valid[..., None], vals, vals.new_zeros(()))
 
+
+def zslice_gather_bwd(g, xg, yg, iz, grid_shape, dtype):
+    """Gradient of `zslice_gather` with respect to the grid: each valid
+    sample's g [B, S_d, npix, C] added into the voxel it was read from,
+    in float32. Voxels no sample read, whole z-slices included, are 0.
+    Returns [B, nx, ny, nz, C] in `dtype`."""
+    b, nx, ny, nz, c = grid_shape
+    idx, valid = _nearest_voxels(xg, yg, iz, nx, ny, nz)
+    flat = idx + torch.arange(b, device=g.device)[:, None, None] * (
+        nx * ny * nz)
+    contrib = torch.where(valid[..., None], g.float(), 0.0)
+    dg = torch.zeros(b * nx * ny * nz, c, dtype=torch.float32,
+                     device=g.device)
+    dg.index_add_(0, flat.reshape(-1), contrib.reshape(-1, c))
+    return dg.reshape(b, nx, ny, nz, c).to(dtype)

@@ -84,11 +84,31 @@ def flax_to_torch(variables):
             for k, v in out.items()}
 
 
+def flax_path(name, bn_modules):
+    """The flax path of the torch tensor `name` ("a.b.weight"), as a tuple
+    of keys: ("a", "b", "kernel"), or ("a", "b", "BatchNorm_0", "scale")
+    when "a.b" is one of `bn_modules`; a running statistic maps to its
+    batch_stats path ("a", "b", "BatchNorm_0", "mean" / "var")."""
+    mod, leaf = name.rsplit(".", 1)
+    path = tuple(mod.split("."))
+    if mod in bn_modules:
+        if leaf.startswith("running_"):
+            return path + (_BN, leaf[len("running_"):])
+        return path + (_BN, "scale" if leaf == "weight" else "bias")
+    return path + ("kernel" if leaf == "weight" else "bias",)
+
+
+def bn_module_names(state_dict):
+    """Names of the BatchNorm modules of a state_dict (those with running
+    statistics)."""
+    return {k[:-len(".running_mean")] for k in state_dict
+            if k.endswith(".running_mean")}
+
+
 def torch_to_flax(state_dict):
     """Inverse of flax_to_torch: state_dict -> {"params", "batch_stats"}
     nested dicts of float32 numpy arrays."""
-    bns = {k[:-len(".running_mean")] for k in state_dict
-           if k.endswith(".running_mean")}
+    bns = bn_module_names(state_dict)
     params, stats = {}, {}
 
     def put(tree, path, value):
@@ -98,16 +118,11 @@ def torch_to_flax(state_dict):
 
     for name, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
-        mod, leaf = name.rsplit(".", 1)
-        path = tuple(mod.split("."))
-        if mod in bns:
-            if leaf.startswith("running_"):
-                put(stats, path + (_BN, leaf[len("running_"):]), arr)
-            else:
-                put(params, path + (_BN, "scale" if leaf == "weight"
-                                    else "bias"), arr)
-        elif leaf == "weight":
-            put(params, path + ("kernel",), _kernel_to_flax(path[-1], arr))
+        path = flax_path(name, bns)
+        if name.rsplit(".", 1)[1].startswith("running_"):
+            put(stats, path, arr)
+        elif path[-1] == "kernel":
+            put(params, path, _kernel_to_flax(path[-2], arr))
         else:
-            put(params, path + ("bias",), arr)
+            put(params, path, arr)
     return {"params": params, "batch_stats": stats}

@@ -201,9 +201,10 @@ def _torch_stages(model, batch):
 
 def test_bfloat16_compute_dtype():
     """COMPUTE_DTYPE="bfloat16" against the JAX module in bfloat16, same
-    weights, at the slice's test size. The dtype policy is flax's: convs
-    take bf16 weights and activations, BatchNorm keeps float32 parameters
-    and statistics and normalises in float32, scores, boxes and masks come
+    weights, at the slice's test size. The dtype policy is flax's: every
+    parameter stays float32 and the convs compute in bf16 (weights and
+    activations cast at use), BatchNorm keeps float32 parameters and
+    statistics and normalises in float32, scores, boxes and masks come
     out float32.
 
     Tolerances, in bf16 rounding steps (2^-8 relative): two conv backends
@@ -227,8 +228,9 @@ def test_bfloat16_compute_dtype():
     model.load_state_dict(flax_to_torch(variables), strict=True)
     got = _torch_stages(model, batch)
 
-    assert model.backbone.conv1.weight.dtype == torch.bfloat16
-    assert model.grid_fusion_p4.down1.weight.dtype == torch.bfloat16
+    for conv in (model.backbone.conv1, model.grid_fusion_p4.down1):
+        assert conv.weight.dtype == torch.float32
+        assert conv.compute_dtype == torch.bfloat16
     for bn in (model.backbone.bn_conv1, model.grid_fusion_p4.bn1):
         for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var):
             assert t.dtype == torch.float32
@@ -273,7 +275,7 @@ def test_engine_detect_matches_jax_engine(tmp_path):
                              opt_state=None, tx=None,
                              apply_fn=jeng.model.apply)
     ref = jeng.detect([images[0]], rcam, kmat)[0]
-    eng = MaskRCNN("inference", cfg, str(tmp_path))
+    eng = MaskRCNN("inference", cfg, str(tmp_path), device="cpu")
     eng.load_flax_variables(variables)
     got = eng.detect([images[0]], rcam, kmat)[0]
 
@@ -295,16 +297,20 @@ def test_engine_detect_matches_jax_engine(tmp_path):
 
 
 def test_engine_refuses_what_it_cannot_run(tmp_path):
-    """No fallback hides the device: device='cuda' without CUDA raises;
-    training and the TPU-only lowerings are refused, not approximated."""
+    """No fallback hides the device: the engine defaults to the card, and
+    device='cuda' without CUDA raises; the TPU-only lowerings and the
+    paths not ported yet (TRAIN_BN, REMAT among them) are refused, not
+    approximated."""
     cfg = SliceConfig()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
-            MaskRCNN("inference", cfg, str(tmp_path), device="cuda")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        MaskRCNN("training", cfg, str(tmp_path))
+            MaskRCNN("inference", cfg, str(tmp_path))
+        with pytest.raises(RuntimeError, match="cuda"):
+            MaskRCNN("training", cfg, str(tmp_path), device="cuda")
+    with pytest.raises(ValueError, match="mode"):
+        MaskRCNN("serving", cfg, str(tmp_path), device="cpu")
     for flag in ("FOLD_BN", "PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
-                 "CROSS_LEVEL_FUSION", "TRAIN_BN", "TRANSFORMER"):
+                 "CROSS_LEVEL_FUSION", "TRAIN_BN", "REMAT", "TRANSFORMER"):
         bad = SliceConfig()
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
@@ -313,6 +319,38 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
     bad.GRID_REAS = "lstm3d"
     with pytest.raises(ValueError, match="conv3d"):
         check_supported(bad)
+
+
+class TrainingSlice(AllLevels):
+    POST_NMS_ROIS_TRAINING = 32
+    TRAIN_ROIS_PER_IMAGE = 8
+    MAX_GT_INSTANCES = 4
+    RPN_TRAIN_ANCHORS_PER_IMAGE = 64
+    STEPS_PER_EPOCH = 1
+
+
+def test_engine_trains(tmp_path, capsys):
+    """The engine in training mode takes a step on the CPU: finite
+    losses printed for the epoch, float32 parameters that moved, and a
+    checkpoint of step 1 (the whole step is held to the JAX package in
+    tests/test_torch_train.py)."""
+    from mulit_view_object_detection_torch.data.synthetic import (
+        SyntheticMultiViewDataset)
+    cfg = TrainingSlice()
+    ds = SyntheticMultiViewDataset(num_scenes=1, num_views=2, image_size=128,
+                                   num_classes=cfg.NUM_CLASSES, seed=3)
+    eng = MaskRCNN("training", cfg, str(tmp_path), device="cpu")
+    before = eng.model.mask_head.mrcnn_mask.weight.detach().clone()
+    eng.train(ds, None, 0.01, 1, "all", prefetch_threads=1)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("epoch 1:")][0]
+    losses = dict(kv.split("=") for kv in line.split()[2:])
+    assert set(losses) >= {"loss", "rpn_class_loss", "mrcnn_mask_loss"}
+    assert all(np.isfinite(float(v)) for v in losses.values()), line
+    w = eng.model.mask_head.mrcnn_mask.weight
+    assert w.dtype == torch.float32 and not torch.equal(w, before)
+    assert eng.epoch == 1 and os.path.isdir(
+        os.path.join(eng.checkpoint_dir, "1"))
 
 
 def test_seeded_init_is_deterministic():
@@ -329,8 +367,8 @@ def test_seeded_init_is_deterministic():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (package, engine, models, kernels) leaves jax
-    and flax out of sys.modules."""
+    """Importing the port (package, engine, models, kernels, training,
+    data) leaves jax and flax out of sys.modules."""
     code = ("import sys\n"
             "import mulit_view_object_detection_torch\n"
             "import mulit_view_object_detection_torch.compat\n"
@@ -339,8 +377,13 @@ def test_port_imports_no_jax():
             "import mulit_view_object_detection_torch.kernels.unproject\n"
             "import mulit_view_object_detection_torch.kernels.reproject\n"
             "import mulit_view_object_detection_torch.utils.convert\n"
+            "import mulit_view_object_detection_torch.train.step\n"
+            "import mulit_view_object_detection_torch.train.checkpoint\n"
+            "import mulit_view_object_detection_torch.data.generator\n"
+            "import mulit_view_object_detection_torch.data.synthetic\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', "
+            "'mulit_view_object_detection_tpu')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -10,7 +10,11 @@ jax nor the repo's conftest, so on a GPU host it runs as
 Tolerances: the unprojection kernel uses explicitly rounded float32
 operations in the plain version's order, so float32 agrees bit for bit;
 in bfloat16 both round the same float32 sum once, also exact. The
-reprojection copies values: exact.
+reprojection copies values: exact. The backward kernels sum with float32
+atomics in no fixed order (so does the plain `index_add_` on the card):
+float32 within 1e-5 of the largest magnitude; bfloat16 casts the float32
+sum once, so where the two sums straddle a rounding boundary they differ
+by one bf16 step (at most 2^-7 of the value), plus that.
 """
 
 import numpy as np
@@ -76,6 +80,77 @@ def test_reproject_kernel_matches_plain(dev, dtype, iz):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
+def test_unproject_bwd_kernel_matches_plain(dev, dtype, fh, fw):
+    """Gradient through the autograd Function (the kernel) against the
+    plain index_add_ scatter, with and without the ReLU mask; x in
+    (-1, 0), y in (-1, 0) and fw == 1 included."""
+    g = torch.Generator().manual_seed(fh * 100 + fw + 7)
+    bv, v, c, n = 4, 2, 64, 3000
+    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype).to(dev)
+    x = torch.rand(bv, n, generator=g) * (fw + 2.0) - 1.5
+    y = torch.rand(bv, n, generator=g) * (fh + 2.0) - 1.5
+    x[:, :64] = -torch.rand(64, generator=g) * 0.98 - 0.01
+    y[:, 64:128] = -torch.rand(64, generator=g) * 0.98 - 0.01
+    x, y = x.to(dev), y.to(dev)
+    gout = torch.randn(bv // v, n, v * c, generator=g).to(dtype).to(dev)
+    for relu in (False, True):
+        leaf = feats.clone().requires_grad_()
+        out = unproject.bilinear_gather_fused(leaf, x, y, fh, fw, v, relu)
+        before = unproject.bwd_launches
+        out.backward(gout)
+        torch.cuda.synchronize()
+        assert unproject.bwd_launches == before + 1
+        ref = P.bilinear_gather_fused_bwd(gout, out.detach(), x, y, fh, fw,
+                                          v, relu, dtype)
+        got = leaf.grad
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs()
+        tol = 1e-5 * float(ref.float().abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("iz", [(0, 2, -1), (-1, 1, 1, 3), (3, 3, 0),
+                                (2, 3, -1)])
+def test_reproject_bwd_kernel_matches_plain(dev, dtype, iz):
+    """Gradient through the autograd Function (the kernel) against the
+    plain index_add_ scatter: .5 ties round half to even, slices no
+    sample reads are zero, and a trailing iz = -1 leaves slice 0 alone."""
+    g = torch.Generator().manual_seed(len(iz) + 11)
+    b, nx, ny, nz, c = 2, 5, 4, 4, 64
+    s_d, npix = len(iz), 400
+    grid = torch.randn(b, nx, ny, nz, c, generator=g).to(dtype).to(dev)
+    xg = torch.rand(b, s_d, npix, generator=g) * (nx + 1.5) - 1.0
+    yg = torch.rand(b, s_d, npix, generator=g) * (ny + 1.5) - 1.0
+    ties = torch.tensor([-0.5, 0.5, 1.5, 2.5, 3.5, 4.5]).repeat(4)
+    xg[:, :, :24] = ties
+    yg[:, :, 24:48] = ties
+    xg, yg = xg.to(dev), yg.to(dev)
+    gout = torch.randn(b, s_d, npix, c, generator=g).to(dtype).to(dev)
+    leaf = grid.clone().requires_grad_()
+    out = reproject.zslice_gather(leaf, xg, yg, np.asarray(iz))
+    before = reproject.bwd_launches
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert reproject.bwd_launches == before + 1
+    ref = P.zslice_gather_bwd(gout, xg, yg, np.asarray(iz), tuple(grid.shape),
+                              dtype)
+    got = leaf.grad
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-5 * float(ref.float().abs().max())
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    assert bool((err <= tol).all()), float(err.max())
+    for z in range(nz):
+        if z not in iz:
+            assert not bool(got[..., z, :].any()), z
+
+
 def test_kernel_wrappers_reject_bad_inputs(dev):
     feats = torch.zeros(4, 16, 8, device=dev)
     xy = torch.zeros(4, 10, device=dev)
@@ -85,13 +160,16 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         unproject.bilinear_gather_fused(feats, xy.double(), xy, 4, 4, 2)
     with pytest.raises(ValueError):
         unproject.bilinear_gather_fused(feats[:, ::2], xy, xy, 2, 4, 2)
-    with pytest.raises(NotImplementedError):
-        unproject.bilinear_gather_fused(feats.requires_grad_(), xy, xy, 4, 4,
-                                        2)
+    g = torch.zeros(2, 10, 16, device=dev)
+    with pytest.raises(ValueError):            # relu needs the saved output
+        unproject.gather_fused_bwd(g, None, xy, xy, 4, 4, 2, relu=True)
+    with pytest.raises(ValueError):
+        unproject.gather_fused_bwd(g, g, xy[:, :5].contiguous(), xy, 4, 4,
+                                   2, relu=True)
     grid = torch.zeros(1, 2, 2, 2, 8, device=dev)
     gxy = torch.zeros(1, 2, 4, device=dev)
     with pytest.raises(ValueError):
         reproject.zslice_gather(grid, gxy, gxy, np.array([0, 2]))
-    with pytest.raises(NotImplementedError):
-        reproject.zslice_gather(grid.requires_grad_(), gxy, gxy,
-                                np.array([0, 1]))
+    with pytest.raises(ValueError):
+        reproject.gather_bwd(torch.zeros(1, 2, 4, 4, device=dev), gxy, gxy,
+                             np.array([0, 1]), (1, 2, 2, 2, 8))
