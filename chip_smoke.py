@@ -6,11 +6,13 @@ Phases, one line each (any failure exits non-zero):
   1. device  — a CUDA device is required (no CPU fallback); prints the
                `nvidia-smi --query-gpu=name,power.limit` line.
   2. build   — compiles the CUDA kernels from csrc/ with nvcc.
-  3. kernels — each of the four kernels (unprojection and reprojection,
-               forward and backward) against its plain torch version at
-               the flagship shapes (B=1, V=2, C=64, 40^3 grid, 20 depth
-               samples; P4/P5/P6 = 40^2/20^2/10^2), float32 with TF32 off
-               and bfloat16: max abs error vs the stated tolerance; the
+  3. kernels — each of the six kernels (unprojection in the fused and the
+               per-view layout and reprojection, forward and backward)
+               against its plain torch version at the flagship shapes
+               (B=1, C=64, 40^3 grid, 20 depth samples; P4/P5/P6 =
+               40^2/20^2/10^2; V=2 for the fused unprojection, V=4 for
+               the per-view one), float32 with TF32 off and bfloat16: max
+               abs error vs the stated tolerance; the
                device time per call (CUDA events around 20 calls queued
                behind a spinning kernel) of the kernel, of the plain
                version and of F.grid_sample (the library call that
@@ -34,16 +36,37 @@ Phases, one line each (any failure exits non-zero):
                the checkpoint to epoch 2 with validation. Losses finite,
                parameters float32. Then the step time after warm-up (host
                clock) and one profiled step's device time.
-  6. parity  — inference at 256^2 (16^3 grid, 8 samples) in float32, TF32
-               off: detections of the CPU run (plain versions) and the GPU
-               run (kernels) must agree.
-  7. train parity — one training step at 256^2 in float32, TF32 off,
-               CPU (plain versions) against GPU (kernels) from the same
-               weights, batch and ROI priorities: the five losses within
-               1e-4 relative, every gradient within 1e-3 of its tensor's
-               largest magnitude (floor: 1e-6 of the step's largest)
-               for 95% of the tensors, and within 1e-2 for all (ReLU
-               flips, see GRAD_TOL).
+  6. parity  — inference in float32, TF32 off: detections of the CPU run
+               (plain versions) and the GPU run (kernels) must agree, for
+               conv3d, add, mean, ident and lstm3d at 256^2 (16^3 grid, 8
+               samples) and for the transformer at its 640^2 config (at
+               256^2 no ROI routes to P5, the one level it fills).
+  7. train parity — one training step each of conv3d (stage "all") and
+               lstm3d (stage "grid+": the backbone frozen, so that the
+               backbone's ReLU flips stay out of the per-view backward's
+               check) at 256^2 in float32, TF32 off, CPU (plain versions)
+               against GPU (kernels) from the same weights, batch and ROI
+               priorities:
+               the five losses within 1e-4 relative, every gradient within
+               1e-3 of its tensor's largest magnitude (floor: 1e-6 of the
+               step's largest) for 95% of the tensors, and within 1e-2 for
+               all (ReLU flips, see GRAD_TOL).
+  8. lstm3d main — inference at the per-view kernel's configuration of
+               record (phase 4's model with 4 views and lstm3d fusion,
+               tools/profile_variants.py:90-93), 3 requests after one
+               warm-up: the per-view forward launches 3 levels x 3 calls,
+               the fused one never, no backward kernel; the host-clock
+               breakdown of each request.
+  9. lstm3d train — 3 training steps of that model on a 640^2 4-view
+               synthetic dataset (phase 5's training settings): the
+               per-view forward and backward launch 3 x 3 times; losses
+               finite, parameters float32; step time and one profiled
+               step's device time.
+ 10. transformer — the transformer config (tools/profile_variants.py:
+               94-101: 2 views, pyramid and d_model 72, one sample, the
+               XFORMER_* defaults) with seeded depths: 3 detect requests
+               and 3 training steps (dropout 0.1 from the engine's
+               generator); no geometry kernel launches.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -92,6 +115,8 @@ BF16_STEP = 2.0 ** -7           # a bf16 step: at most 2^-7 of the value
 # float32 sum once. Reprojection copies values: exact. Absolute tolerances.
 TOL = {("unproject", torch.float32): 1e-5,
        ("unproject", torch.bfloat16): 2.0 ** -6,
+       ("unproject_view", torch.float32): 0.0,
+       ("unproject_view", torch.bfloat16): 0.0,
        ("reproject", torch.float32): 0.0,
        ("reproject", torch.bfloat16): 0.0}
 # Backward: both sides sum in float32 with atomics in no fixed order (up
@@ -104,6 +129,10 @@ REPLACES = {
                  "unproject_pallas.py:185",
     "unproject_bwd": "mulit_view_object_detection_tpu/kernels/"
                      "unproject_pallas.py:293",
+    "unproject_view": "mulit_view_object_detection_tpu/kernels/"
+                      "unproject_pallas.py:250",
+    "unproject_view_bwd": "mulit_view_object_detection_tpu/kernels/"
+                          "unproject_pallas.py:293",
     "reproject": "mulit_view_object_detection_tpu/kernels/"
                  "reproject_pallas.py:168",
     "reproject_bwd": "mulit_view_object_detection_tpu/kernels/"
@@ -111,6 +140,8 @@ REPLACES = {
 }
 JSON_NAMES = {"unproject": "unproject_fused",
               "unproject_bwd": "unproject_fused_bwd",
+              "unproject_view": "unproject",
+              "unproject_view_bwd": "unproject_bwd",
               "reproject": "reproject_nearest",
               "reproject_bwd": "reproject_nearest_bwd"}
 # Train-step parity, CPU vs GPU: a ReLU whose input lies within float32
@@ -127,6 +158,8 @@ GRAD_FLIP_TOL = 1e-2
 GRAD_FLIP_SHARE = 0.05
 SOURCES = {"unproject": "mulit_view_object_detection_torch/csrc/unproject.cu",
            "reproject": "mulit_view_object_detection_torch/csrc/reproject.cu"}
+KERNELS = ("unproject", "unproject_bwd", "unproject_view",
+           "unproject_view_bwd", "reproject", "reproject_bwd")
 
 
 class FlagshipConfig(Config):
@@ -164,6 +197,44 @@ class FlagshipTrainConfig(FlagshipConfig):
     VALIDATION_STEPS = 1
 
 
+class Lstm4Config(FlagshipConfig):
+    """The per-view kernel's configuration of record: bench.py:97-116's
+    BenchConfig with 4 views and lstm3d fusion (tools/profile_variants.py:
+    90-93, BENCH_4VIEW_r05.json's 4view_640_lstm3d row)."""
+    NAME = "lstm3d4_640"
+    NUM_VIEWS = 4
+    GRID_REAS = "lstm3d"
+
+
+class Lstm4TrainConfig(Lstm4Config):
+    """Lstm4Config with FlagshipTrainConfig's training settings."""
+    NAME = "lstm3d4_train_640"
+    POST_NMS_ROIS_TRAINING = 500
+    TRAIN_ROIS_PER_IMAGE = 200
+    MAX_GT_INSTANCES = 100
+    STEPS_PER_EPOCH = 3
+
+
+class XformerConfig(FlagshipConfig):
+    """tools/profile_variants.py:94-101: 2 views, the transformer on P5
+    (pyramid and d_model 72, one sample per ray), XFORMER_* defaults
+    (6 layers, 8 heads, dff 256, dropout 0.1)."""
+    NAME = "xformer_640"
+    GRID_REAS = "ident"
+    TRANSFORMER = True
+    TOP_DOWN_PYRAMID_SIZE = 72
+    XFORMER_D_MODEL = 72
+    samples = 1
+
+
+class XformerTrainConfig(XformerConfig):
+    NAME = "xformer_train_640"
+    POST_NMS_ROIS_TRAINING = 500
+    TRAIN_ROIS_PER_IMAGE = 200
+    MAX_GT_INSTANCES = 100
+    STEPS_PER_EPOCH = 3
+
+
 class Flagship256(FlagshipConfig):
     """The shape of __graft_entry__._flagship_config(256), in float32."""
     NAME = "flagship_256"
@@ -184,6 +255,18 @@ class Flagship256Train(Flagship256):
     POST_NMS_ROIS_TRAINING = 100
     TRAIN_ROIS_PER_IMAGE = 50
     MAX_GT_INSTANCES = 10
+
+
+def with_fusion(cls, mode):
+    """`cls` with GRID_REAS = mode (its name suffixed)."""
+    return type(f"{cls.__name__}_{mode}", (cls,), {
+        "NAME": f"{cls.NAME}_{mode}", "GRID_REAS": mode})
+
+
+class Xformer640F32(XformerConfig):
+    """The transformer's parity config: its config of record in float32."""
+    NAME = "xformer_640_f32"
+    COMPUTE_DTYPE = "float32"
 
 
 def say(phase, **fields):
@@ -341,6 +424,41 @@ def _unproject_cases(feats, x, y, s, v, dtype):
     }
 
 
+def _unproject_view_cases(feats, x, y, s, dtype):
+    """The per-view unprojection's forward and backward, as
+    _unproject_cases gives the fused one's."""
+    bv, p, c = feats.shape
+    n = x.shape[1]
+    es = feats.element_size()
+    gen = torch.Generator(DEV).manual_seed(s + 1)
+    g = torch.randn((bv, n, c), generator=gen, device=DEV).to(dtype)
+    inp = feats.reshape(bv, s, s, c).permute(0, 3, 1, 2)
+    coords = torch.stack([2 * x / (s - 1) - 1, 2 * y / (s - 1) - 1],
+                         -1)[:, None].to(dtype)
+    lib_in = inp.detach().clone().requires_grad_()
+    lib_out = F.grid_sample(lib_in, coords, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+    lib_g = torch.randn(lib_out.shape, generator=gen, device=DEV).to(dtype)
+    coord_bytes = 2 * bv * n * 4
+    return {
+        "unproject_view": (
+            lambda: unproject.gather(feats, x, y, s, s),
+            lambda: plain.bilinear_gather(feats, x, y, s, s),
+            lambda: F.grid_sample(inp, coords, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+            bv * p * c * es + coord_bytes + bv * n * c * es,
+            7 * bv * n * c),
+        # reads all of g, writes dfeats
+        "unproject_view_bwd": (
+            lambda: unproject.gather_bwd(g, x, y, s, s),
+            lambda: plain.bilinear_gather_bwd(g, x, y, s, s, dtype),
+            lambda: torch.autograd.grad(lib_out, lib_in, lib_g,
+                                        retain_graph=True),
+            bv * n * c * es + coord_bytes + bv * p * c * es,
+            8 * bv * n * c),
+    }
+
+
 def _reproject_cases(grid, xg, yg, iz, dtype):
     b, nx, ny, nz, c = grid.shape
     s_d, npix = xg.shape[1], xg.shape[2]
@@ -418,6 +536,7 @@ def phase_kernels():
     g = torch.Generator().manual_seed(0)
     b, v, c = 1, 2, 64
     rcam = torch.from_numpy(poses(rng, b, v)).to(DEV)
+    rcam4 = torch.from_numpy(poses(rng, b, 4)).to(DEV)
     kmat = torch.from_numpy(intrinsics(b, 640)).to(DEV)
     pts = torch.from_numpy(plain.voxel_grid_points(cfg)).to(DEV)
     nx = ny = cfg.nvox
@@ -431,12 +550,17 @@ def phase_kernels():
             x, y = x.contiguous(), y.contiguous()
             outside = float(((x[1] < -1) | (x[1] > s) | (y[1] < -1)
                              | (y[1] > s)).float().mean())
+            feats4 = torch.randn(b * 4, s * s, c, generator=g).to(DEV, dtype)
+            x4, y4 = plain.project_voxel_coords(rcam4, kmat, (640, 640), pts,
+                                                s, s)
             grid = torch.randn(b, nx, ny, nz, c, generator=g).to(DEV, dtype)
             xg, yg, iz = plain.reprojection_coords(kmat, (640, 640), s,
                                                    cfg.samples, cfg, nx, ny,
                                                    nz)
             xg, yg = xg.contiguous(), yg.contiguous()
             cases = _unproject_cases(feats, x, y, s, v, dtype)
+            cases.update(_unproject_view_cases(
+                feats4, x4.contiguous(), y4.contiguous(), s, dtype))
             cases.update(_reproject_cases(grid, xg, yg, iz, dtype))
             for name, (kern, ref, lib, nbytes, flops) in cases.items():
                 got, want = kern(), ref()
@@ -468,74 +592,93 @@ def phase_kernels():
     return record
 
 
-def request_images(rng, n, hw):
-    return [rng.randint(0, 256, (2, hw, hw, 3)).astype(np.uint8)
+def request_images(rng, n, hw, views=2):
+    return [rng.randint(0, 256, (views, hw, hw, 3)).astype(np.uint8)
             for _ in range(n)]
+
+
+def request_depths(rng, n, cfg):
+    """Seeded depth maps [1, V, h5, w5] at P5's resolution, 1.5-8 m."""
+    s5 = cfg.IMAGE_MAX_DIM // cfg.BACKBONE_STRIDES[3]
+    return [rng.uniform(1.5, 8.0, (1, cfg.NUM_VIEWS, s5, s5)).astype(
+        np.float32) for _ in range(n)]
 
 
 def reset_counts():
     unproject.launches = unproject.bwd_launches = 0
+    unproject.view_launches = unproject.view_bwd_launches = 0
     reproject.launches = reproject.bwd_launches = 0
 
 
 def read_counts():
     return {"unproject": unproject.launches,
             "unproject_bwd": unproject.bwd_launches,
+            "unproject_view": unproject.view_launches,
+            "unproject_view_bwd": unproject.view_bwd_launches,
             "reproject": reproject.launches,
             "reproject_bwd": reproject.bwd_launches}
 
 
-def phase_main():
-    cfg = FlagshipConfig()
+def expected(**counts):
+    """A launch count for every kernel: those named, 0 for the others."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def run_requests(tag, cfg, per_request):
+    """The engine's detect at `cfg` with seeded weights: one warm-up
+    request (every raw output must be finite), 3 counted requests, then
+    the same 3 once more, timed part by part on the host clock.
+    `per_request` is the launch count each kernel must reach per request.
+    Returns the counts of the counted run."""
     t = time.perf_counter()
     eng = MaskRCNN("inference", cfg, "build")
     eng.init_weights(torch.Generator().manual_seed(0))
     setup_s = time.perf_counter() - t
     rng = np.random.RandomState(1)
-    reqs = request_images(rng, 4, 640)
-    rcams = [poses(rng, 1, 2) for _ in reqs]
-    kmat = intrinsics(1, 640)
+    reqs = request_images(rng, 4, cfg.IMAGE_MAX_DIM, cfg.NUM_VIEWS)
+    rcams = [poses(rng, 1, cfg.NUM_VIEWS) for _ in reqs]
+    depths = (request_depths(rng, len(reqs), cfg) if cfg.TRANSFORMER
+              else [None] * len(reqs))
+    kmat = intrinsics(1, cfg.IMAGE_MAX_DIM)
 
-    # warm-up request: also checks every raw output is finite
-    outs, _, _ = eng.run_model([reqs[0]], rcams[0], kmat)
+    outs, _, _ = eng.run_model([reqs[0]], rcams[0], kmat, depths[0])
     torch.cuda.synchronize()
     for k, t_ in outs.items():
         if not torch.isfinite(t_.float()).all():
-            raise RuntimeError(f"main path output {k} is not finite")
-    say("main", warmup="ok", setup_s=round(setup_s, 3),
+            raise RuntimeError(f"{tag} output {k} is not finite")
+    say(tag, warmup="ok", setup_s=round(setup_s, 3),
         outputs={k: list(t_.shape) for k, t_ in outs.items()})
 
     reset_counts()
     lat = []
-    for img, rcam in zip(reqs[1:], rcams[1:]):
+    for img, rcam, dep in zip(reqs[1:], rcams[1:], depths[1:]):
         t = time.perf_counter()
-        r = eng.detect([img], rcam, kmat)[0]
+        r = eng.detect([img], rcam, kmat, dep)[0]
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         n = len(r["class_ids"])
         if not (np.isfinite(r["scores"]).all() and r["masks"].shape
                 == img.shape[1:3] + (n,) and r["rois"].shape == (n, 4)):
-            raise RuntimeError("main path produced malformed detections")
-        say("main", detections=n, rois=list(r["rois"].shape),
+            raise RuntimeError(f"{tag} produced malformed detections")
+        say(tag, detections=n, rois=list(r["rois"].shape),
             masks=list(r["masks"].shape),
             classes=sorted(set(int(c) for c in r["class_ids"])),
             latency_ms=round(lat[-1], 3))
     launches = read_counts()
-    expect = {"unproject": 3 * len(lat), "reproject": 3 * len(lat),
-              "unproject_bwd": 0, "reproject_bwd": 0}
-    say("main", calls=len(lat), launches=launches, expected=expect,
+    expect = expected(**{k: n * len(lat) for k, n in per_request.items()})
+    say(tag, calls=len(lat), launches=launches, expected=expect,
         latency_ms_median=round(statistics.median(lat), 3))
     if launches != expect:
-        raise RuntimeError(f"kernel launches {launches} != {expect}")
+        raise RuntimeError(f"{tag} kernel launches {launches} != {expect}")
 
     # host-clock breakdown of the same requests, unprofiled, after the
     # counted run: detect() is run_model (molding included), the copy of
     # its outputs to the host, and unmolding
-    for img, rcam in zip(reqs[1:], rcams[1:]):
+    for img, rcam, dep in zip(reqs[1:], rcams[1:], depths[1:]):
         t0 = time.perf_counter()
         eng.mold_inputs(list(img))
         t1 = time.perf_counter()
-        outs, shape, windows = eng.run_model([img], rcam, kmat)
+        outs, shape, windows = eng.run_model([img], rcam, kmat, dep)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         det = outs["detections"].float().cpu().numpy()
@@ -544,13 +687,63 @@ def phase_main():
         eng.unmold_detections(det[0], masks[0], img.shape[1:], shape,
                               windows[0])
         t4 = time.perf_counter()
-        say("main", breakdown_ms=json.dumps({
+        say(tag, breakdown_ms=json.dumps({
             "mold": round((t1 - t0) * 1e3, 3),
             "run_model_incl_mold": round((t2 - t1) * 1e3, 3),
             "copy_out": round((t3 - t2) * 1e3, 3),
             "unmold": round((t4 - t3) * 1e3, 3),
             "request": round((t4 - t1) * 1e3, 3)}, separators=(",", ":")))
     return launches
+
+
+def phase_main():
+    return run_requests("main", FlagshipConfig(),
+                        {"unproject": 3, "reproject": 3})
+
+
+def time_steps(tag, eng, ds, cfg):
+    """Step time after warm-up (host clock around train_step, which ends
+    in a copy of the losses to the host), then one profiled step for the
+    device's share."""
+    model = eng.model
+    mask = trainable_mask(model, "all")
+    opt = make_optimizer([p for n, p in model.named_parameters()
+                          if mask[n]], cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+    batch = eng.to_device(make_batch(ds, cfg, rnd_state=99,
+                                     with_depth=bool(cfg.TRANSFORMER)))
+    gen = torch.Generator(DEV).manual_seed(1)
+
+    def step():
+        return train_step(model, opt, batch, cfg, mask, gen)
+
+    step()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    reset_counts()
+    busy_ms, device_events = device_profile(step)
+    per_step = read_counts()
+    step_ms = statistics.median(times)
+    say(tag, step_ms=[round(t_, 3) for t_ in times],
+        step_ms_median=round(step_ms, 3),
+        device_busy_ms=busy_ms and round(busy_ms, 3),
+        device_idle_share=busy_ms and round(1 - busy_ms / step_ms, 4),
+        device_events_per_step=device_events,
+        kernel_launches_per_step=per_step,
+        peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+
+
+def check_trained(losses, model):
+    for ep, means in losses.items():
+        if not all(np.isfinite(v) for v in means.values()):
+            raise RuntimeError(f"epoch {ep} losses not finite: {means}")
+    bad = [n for n, p in model.named_parameters() if p.dtype != torch.float32]
+    if bad:
+        raise RuntimeError(f"parameters not float32: {bad[:5]}")
 
 
 def phase_train():
@@ -571,11 +764,13 @@ def phase_train():
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t
         launches = read_counts()
-        expect = 3 * cfg.STEPS_PER_EPOCH
+        n = 3 * cfg.STEPS_PER_EPOCH
+        expect = expected(unproject=n, unproject_bwd=n, reproject=n,
+                          reproject_bwd=n)
         say("train", epoch=1, steps=cfg.STEPS_PER_EPOCH, launches=launches,
             expected=expect, seconds=round(epoch_s, 3),
             losses=json.dumps(losses[1], separators=(",", ":")))
-        if any(n != expect for n in launches.values()):
+        if launches != expect:
             raise RuntimeError(f"train launches {launches} != {expect}")
 
         # resume: a new engine loads the checkpoint (its epoch count
@@ -597,52 +792,62 @@ def phase_train():
         say("train", epoch=2, resumed_from=ckpt.split(model_dir)[-1],
             launches=resumed,
             losses=json.dumps(losses[2], separators=(",", ":")))
-        want = {"unproject": 3 * (cfg.STEPS_PER_EPOCH + 1),
-                "reproject": 3 * (cfg.STEPS_PER_EPOCH + 1),
-                "unproject_bwd": expect, "reproject_bwd": expect}
+        want = expected(unproject=3 * (cfg.STEPS_PER_EPOCH + 1),
+                        reproject=3 * (cfg.STEPS_PER_EPOCH + 1),
+                        unproject_bwd=n, reproject_bwd=n)
         if resumed != want:
             raise RuntimeError(f"resumed launches {resumed} != {want}")
-        for ep, means in losses.items():
-            if not all(np.isfinite(v) for v in means.values()):
-                raise RuntimeError(f"epoch {ep} losses not finite: {means}")
-        bad = [n for n, p in eng2.model.named_parameters()
-               if p.dtype != torch.float32]
-        if bad:
-            raise RuntimeError(f"parameters not float32: {bad[:5]}")
-
-        # step time after warm-up: host clock around train_step (which
-        # ends in a copy of the losses to the host), then one profiled
-        # step for the device's share
-        model = eng2.model
-        mask = trainable_mask(model, "all")
-        opt = make_optimizer([p for n, p in model.named_parameters()
-                              if mask[n]], cfg.LEARNING_RATE,
-                             cfg.LEARNING_MOMENTUM)
-        batch = eng2.to_device(make_batch(ds, cfg, rnd_state=99))
-        gen = torch.Generator(DEV).manual_seed(1)
-
-        def step():
-            return train_step(model, opt, batch, cfg, mask, gen)
-
-        step()
-        times = []
-        for _ in range(5):
-            t = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        reset_counts()
-        busy_ms, device_events = device_profile(step)
-        per_step = read_counts()
-        step_ms = statistics.median(times)
-        say("train", step_ms=[round(t_, 3) for t_ in times],
-            step_ms_median=round(step_ms, 3),
-            device_busy_ms=busy_ms and round(busy_ms, 3),
-            device_idle_share=busy_ms and round(1 - busy_ms / step_ms, 4),
-            device_events_per_step=device_events,
-            kernel_launches_per_step=per_step,
-            peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+        check_trained(losses, eng2.model)
+        time_steps("train", eng2, ds, cfg)
     return launches
+
+
+def run_training(tag, cfg, per_step):
+    """compat.MaskRCNN("training").train for one epoch of
+    cfg.STEPS_PER_EPOCH steps on a seeded 640^2 synthetic dataset with
+    cfg.NUM_VIEWS views; each kernel must launch per_step[k] times a
+    step. Then the step time and a profiled step. Returns the counts."""
+    ds = SyntheticMultiViewDataset(num_scenes=4, num_views=cfg.NUM_VIEWS,
+                                   image_size=cfg.IMAGE_MAX_DIM,
+                                   num_classes=cfg.NUM_CLASSES, seed=0)
+    losses = {}
+    with tempfile.TemporaryDirectory(dir="build") as model_dir:
+        eng = MaskRCNN("training", cfg, model_dir)
+        reset_counts()
+        t = time.perf_counter()
+        eng.train(ds, None, cfg.LEARNING_RATE, 1, "all",
+                  custom_callbacks=[losses.__setitem__], prefetch_threads=2)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t
+        launches = read_counts()
+        expect = expected(**{k: n * cfg.STEPS_PER_EPOCH
+                             for k, n in per_step.items()})
+        say(tag, epoch=1, steps=cfg.STEPS_PER_EPOCH, launches=launches,
+            expected=expect, seconds=round(epoch_s, 3),
+            losses=json.dumps(losses[1], separators=(",", ":")))
+        if launches != expect:
+            raise RuntimeError(f"{tag} launches {launches} != {expect}")
+        check_trained(losses, eng.model)
+        time_steps(tag, eng, ds, cfg)
+    return launches
+
+
+def phase_lstm_main():
+    return run_requests("lstm3d_main", Lstm4Config(),
+                        {"unproject_view": 3, "reproject": 3})
+
+
+def phase_lstm_train():
+    return run_training("lstm3d_train", Lstm4TrainConfig(),
+                        {"unproject_view": 3, "unproject_view_bwd": 3,
+                         "reproject": 3, "reproject_bwd": 3})
+
+
+def phase_xformer():
+    """3 detect requests and 3 training steps; the transformer path runs
+    no geometry kernel."""
+    return (run_requests("xformer_main", XformerConfig(), {}),
+            run_training("xformer_train", XformerTrainConfig(), {}))
 
 
 def _iou(a, b):
@@ -654,21 +859,28 @@ def _iou(a, b):
     return inter / union if union > 0 else 0.0
 
 
-def phase_parity():
-    """CPU plain versions vs GPU kernels at 256^2, float32, TF32 off:
+PARITY_CONFIGS = (Flagship256, with_fusion(Flagship256, "add"),
+                  with_fusion(Flagship256, "mean"),
+                  with_fusion(Flagship256, "ident"),
+                  with_fusion(Flagship256, "lstm3d"), Xformer640F32)
+
+
+def phase_parity(cfg):
+    """CPU plain versions vs GPU kernels at `cfg` (float32), TF32 off:
     the bar of tests/test_fullgraph_parity.py (counts within one; each
     reference detection matched by class and box IoU >= 0.9 with score
     within 0.02 and mask IoU > 0.85, at most one unmatched)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Flagship256()
     rng = np.random.RandomState(2)
-    img = request_images(rng, 1, 256)[0]
-    rcam, kmat = poses(rng, 1, 2), intrinsics(1, 256)
+    hw = cfg.IMAGE_MAX_DIM
+    img = request_images(rng, 1, hw, cfg.NUM_VIEWS)[0]
+    rcam, kmat = poses(rng, 1, cfg.NUM_VIEWS), intrinsics(1, hw)
+    depths = request_depths(rng, 1, cfg)[0] if cfg.TRANSFORMER else None
     ref, got = [
         MaskRCNN("inference", cfg, "build", device=dev)
         .init_weights(torch.Generator().manual_seed(3))
-        .detect([img], rcam, kmat)[0]
+        .detect([img], rcam, kmat, depths)[0]
         for dev in ("cpu", "cuda")]
     n_ref, n_got = len(ref["class_ids"]), len(got["class_ids"])
     used, matched, worst_score, worst_mask = set(), 0, 0.0, 1.0
@@ -692,14 +904,15 @@ def phase_parity():
         if union:
             worst_mask = min(worst_mask,
                              np.logical_and(a, b).sum() / union)
-    say("parity", cpu_detections=n_ref, gpu_detections=n_got,
-        matched=matched, max_score_diff=worst_score,
+    say("parity", config=cfg.NAME, cpu_detections=n_ref,
+        gpu_detections=n_got, matched=matched, max_score_diff=worst_score,
         min_mask_iou=round(float(worst_mask), 4))
     if n_ref == 0:
-        raise RuntimeError("parity run produced no detections to compare")
+        raise RuntimeError(f"{cfg.NAME} parity run produced no detections "
+                           f"to compare")
     if (abs(n_ref - n_got) > 1 or matched < n_ref - 1
             or worst_score >= 0.02 or worst_mask <= 0.85):
-        raise RuntimeError("CPU and GPU detections disagree")
+        raise RuntimeError(f"{cfg.NAME}: CPU and GPU detections disagree")
 
 
 def _grad_errs(ref, got, floor):
@@ -709,15 +922,15 @@ def _grad_errs(ref, got, floor):
             for n, r in ref.items()}
 
 
-def phase_train_parity():
-    """One train step's losses and gradients, CPU plain versions vs GPU
-    kernels, at 256^2 in float32 with TF32 off, same weights, batch and
-    ROI sampling priorities; the GPU step twice, for its own spread. Also
-    counts the backbone ReLU inputs (bn2a, bn2b outputs) whose sign
-    differs between the CPU and the GPU forward."""
+def phase_train_parity(cfg, kernels, stage="all"):
+    """One train step's losses and gradients at `cfg` and trainable
+    `stage`, CPU plain versions vs GPU kernels, in float32 with TF32 off,
+    same weights, batch and ROI sampling priorities; the GPU step twice,
+    for its own spread; each of `kernels` launched 3 times (P4, P5, P6) in
+    the GPU step. Also counts the backbone ReLU inputs (bn2a, bn2b
+    outputs) whose sign differs between the CPU and the GPU forward."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Flagship256Train()
     ds = SyntheticMultiViewDataset(num_scenes=2, num_views=2, image_size=256,
                                    num_classes=cfg.NUM_CLASSES, seed=2)
     host = make_batch(ds, cfg, rnd_state=0)
@@ -735,7 +948,9 @@ def phase_train_parity():
                         lambda m, a, out, name=name: signs.__setitem__(
                             name, (out > 0).cpu()))
             reset_counts()
-            mask = trainable_mask(eng.model, "all")
+            mask = trainable_mask(eng.model, stage)
+            for n, p in eng.model.named_parameters():
+                p.requires_grad_(mask[n])
             _, parts = loss_and_grads(eng.model, batch, cfg, mask)
             runs.append((
                 {k: v.item() for k, v in parts.items()},
@@ -753,37 +968,49 @@ def phase_train_parity():
     flips = {n: int((sc[n] != sg[n]).sum()) for n in sc}
     worst_name = max(errs, key=errs.get)
     beyond = sorted(n for n, e in errs.items() if e > GRAD_TOL)
-    say("train_parity", losses_cpu=json.dumps(lc, separators=(",", ":")),
+    say("train_parity", config=cfg.NAME, stage=stage,
+        losses_cpu=json.dumps(lc, separators=(",", ":")),
         losses_gpu=json.dumps(lg, separators=(",", ":")),
         max_loss_rel_err=loss_err, max_grad_err=errs[worst_name],
         worst_tensor=worst_name, tensors=len(gc),
         beyond_1e_3=json.dumps({n: round(errs[n], 6) for n in beyond}),
         relu_flips=json.dumps({n: k for n, k in flips.items() if k}),
         gpu_repeat_max_grad_err=repeat, gpu_launches=counts)
-    if any(n != 3 for n in counts.values()):
-        raise RuntimeError(f"GPU step did not run every kernel: {counts}")
+    want = expected(**{k: 3 for k in kernels})
+    if counts != want:
+        raise RuntimeError(f"GPU step launched {counts}, not {want}")
     if not (loss_err <= 1e-4 and errs[worst_name] <= GRAD_FLIP_TOL
             and len(beyond) <= GRAD_FLIP_SHARE * len(errs)):
-        raise RuntimeError("CPU and GPU train steps disagree")
+        raise RuntimeError(f"{cfg.NAME}: CPU and GPU train steps disagree")
 
 
 def main():
     name = phase_device()
     phase_build()
     record = phase_kernels()
-    infer = phase_main()
-    train = phase_train()
-    phase_parity()
-    phase_train_parity()
+    paths = {"inference": phase_main(), "train": phase_train()}
+    for cfg_cls in PARITY_CONFIGS:
+        phase_parity(cfg_cls())
+    phase_train_parity(Flagship256Train(), ("unproject", "unproject_bwd",
+                                            "reproject", "reproject_bwd"))
+    # the lstm3d step checks the per-view backward kernel: with the
+    # backbone frozen (stage grid+), every gradient it feeds is compared,
+    # and the backbone's CPU-vs-GPU ReLU flips (GRAD_TOL) stay out of it
+    phase_train_parity(with_fusion(Flagship256Train, "lstm3d")(),
+                       ("unproject_view", "unproject_view_bwd", "reproject",
+                        "reproject_bwd"), stage="grid+")
+    paths["lstm3d_inference"] = phase_lstm_main()
+    paths["lstm3d_train"] = phase_lstm_train()
+    paths["xformer_inference"], paths["xformer_train"] = phase_xformer()
     kernels = []
-    for key in ("unproject", "unproject_bwd", "reproject", "reproject_bwd"):
+    for key in KERNELS:
+        by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({
             "name": JSON_NAMES[key], "route": "cuda",
             "source": SOURCES[key.split("_")[0]],
             "replaces": REPLACES[key],
-            "launches": infer[key] + train[key],
-            "launches_by_path": {"inference": infer[key],
-                                 "train": train[key]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **record[key]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@ training.
 
 Port of `mulit_view_object_detection_tpu/compat/model.py`:
 `MaskRCNN(mode, config, model_dir, device="cuda")` with `detect(images,
-Rcam, Kmat)`, `mold_inputs` / `unmold_detections` (the JAX engine's
+Rcam, Kmat, depths)`, `mold_inputs` / `unmold_detections` (the JAX engine's
 contract; molding from the port's numpy copy `data/molding.py`),
 `train(...)`, `save_weights` / `load_weights` (checkpoint directories),
 `find_last` and `set_log_dir`. The engine runs on the card unless the
@@ -43,7 +43,8 @@ _BATCH_DTYPES = {"images": torch.float32, "image_meta": torch.float32,
                  "anchors": torch.float32, "Rcam": torch.float32,
                  "Kmat": torch.float32, "rpn_match": torch.int64,
                  "rpn_bbox": torch.float32, "gt_class_ids": torch.int64,
-                 "gt_boxes": torch.float32, "gt_masks": torch.float32}
+                 "gt_boxes": torch.float32, "gt_masks": torch.float32,
+                 "depths": torch.float32}
 
 
 class MaskRCNN:
@@ -200,11 +201,12 @@ class MaskRCNN:
     # ------------------------------------------------------------------ #
     # inference
     # ------------------------------------------------------------------ #
-    def run_model(self, images, Rcam=None, Kmat=None):
+    def run_model(self, images, Rcam=None, Kmat=None, depths=None):
         """Mold `images` (each a [V, H, W, 3] stack, main view first, or
-        one [H, W, 3] image) and run the model. Returns (the model's
-        output tensors on the device, molded shape [h, w, 3], windows
-        [B, 4]) — detect() without the unmolding."""
+        one [H, W, 3] image) and run the model; `depths` [B, V, h5, w5]
+        (metric depth at P5's resolution) is required with TRANSFORMER.
+        Returns (the model's output tensors on the device, molded shape
+        [h, w, 3], windows [B, 4]) — detect() without the unmolding."""
         molded, metas, windows = [], [], []
         for item in images:
             views = np.asarray(item)
@@ -228,15 +230,21 @@ class MaskRCNN:
             "Rcam": torch.as_tensor(np.asarray(Rcam, np.float32), device=dev),
             "Kmat": torch.as_tensor(np.asarray(Kmat, np.float32), device=dev),
         }
+        if self.config.TRANSFORMER:
+            if depths is None:
+                raise ValueError("TRANSFORMER fusion needs `depths`")
+            batch["depths"] = torch.as_tensor(np.asarray(depths, np.float32),
+                                              device=dev)
         return self.model(batch), molded.shape[2:5], np.stack(windows)
 
-    def detect(self, images, Rcam=None, Kmat=None, verbose=0):
+    def detect(self, images, Rcam=None, Kmat=None, depths=None, verbose=0):
         """Run detection. For multi-view, each element of `images` is a
         [V, H, W, 3] uint8 stack whose first view is the main view; Rcam
         [B, V, 3, 4] cam->world, Kmat [B, 3, 3] (model_multi.py:
-        3019-3082). Returns a list of dicts with rois/class_ids/scores/
-        masks."""
-        outputs, molded_shape, windows = self.run_model(images, Rcam, Kmat)
+        3019-3082); depths [B, V, h5, w5] with TRANSFORMER. Returns a list
+        of dicts with rois/class_ids/scores/masks."""
+        outputs, molded_shape, windows = self.run_model(images, Rcam, Kmat,
+                                                        depths)
         detections = outputs["detections"].float().cpu().numpy()
         masks = outputs["mrcnn_masks"].float().cpu().numpy()
         results = []
@@ -257,7 +265,7 @@ class MaskRCNN:
         """A host batch (make_batch's numpy dict) as tensors on the
         engine's device."""
         return {k: torch.as_tensor(np.asarray(batch[k])).to(
-            self.device, dt) for k, dt in _BATCH_DTYPES.items()}
+            self.device, dt) for k, dt in _BATCH_DTYPES.items() if k in batch}
 
     def train(self, train_dataset, val_dataset, learning_rate, epochs,
               layers, custom_callbacks=None, augmentation=None,
@@ -273,8 +281,9 @@ class MaskRCNN:
         batches of `val_dataset` are scored with the training graph and no
         update; a checkpoint is written every `save_every_epochs` epochs
         and after the last. `augmentation` is a callable (image, mask,
-        rng) -> (image, mask), see data.augment. Prints one line per
-        epoch."""
+        rng) -> (image, mask), see data.augment. With TRANSFORMER the
+        batches carry depth maps, and the transformer's dropout draws from
+        the engine's sampling generator. Prints one line per epoch."""
         if self.mode != "training":
             raise ValueError("create the engine in training mode to train")
         cfg = self.config
@@ -285,8 +294,10 @@ class MaskRCNN:
         optimizer = make_optimizer(
             [p for n, p in model.named_parameters() if mask[n]],
             learning_rate, cfg.LEARNING_MOMENTUM)
+        with_depth = bool(cfg.TRANSFORMER)
         prefetcher = BatchPrefetcher(
             lambda seed: make_batch(train_dataset, cfg, rnd_state=seed,
+                                    with_depth=with_depth,
                                     augmentation=augmentation),
             num_threads=prefetch_threads)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
@@ -304,7 +315,8 @@ class MaskRCNN:
                     vacc = {}
                     for vstep in range(cfg.VALIDATION_STEPS):
                         vbatch = make_batch(val_dataset, cfg,
-                                            rnd_state=epoch * 10007 + vstep)
+                                            rnd_state=epoch * 10007 + vstep,
+                                            with_depth=with_depth)
                         for k, v in val_step(model, self.to_device(vbatch),
                                              cfg, self._sampling).items():
                             vacc.setdefault(k, []).append(v)

@@ -360,16 +360,22 @@ _TPU_LOWERINGS = ("FOLD_BN", "PHASE_DECONV", "PHASE_DECONV_MASK",
                   "ZFOLD_FUSION", "STEM_S2D", "CROSS_LEVEL_FUSION",
                   "LSTM_HOIST_INPUT")
 # Paths the JAX package has and this port does not run yet.
-_NOT_YET = ("TRAIN_BN", "REMAT", "TRANSFORMER", "TRILINEAR_REPROJECTION",
+_NOT_YET = ("TRAIN_BN", "REMAT", "TRILINEAR_REPROJECTION",
             "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID", "VIEW_SHARDING")
+# GridFusion modes of the projected path (TRANSFORMER switches the
+# transformer fusion, not GRID_REAS)
+_PORTED_FUSIONS = ("add", "mean", "ident", "conv3d", "lstm3d")
 
 
 def check_supported(cfg):
     """Raise ValueError on a config this port cannot run faithfully.
 
-    Runs: multi-view conv3d fusion, VANILLA, single view; COMPUTE_DTYPE
-    float32 or bfloat16. USE_PALLAS is ignored (the CUDA kernels run
-    whenever the tensors are on the GPU)."""
+    Runs: single view, VANILLA, the projected multi-view path with every
+    GridFusion mode (add, mean, ident, conv3d, lstm3d), and the
+    transformer view fusion (TRANSFORMER); COMPUTE_DTYPE float32 or
+    bfloat16. USE_PALLAS is ignored (the CUDA kernels run whenever the
+    tensors are on the GPU). Refuses the TPU-only lowerings and the paths
+    not ported yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION, ...)."""
     for name in _TPU_LOWERINGS:
         if getattr(cfg, name, False):
             raise ValueError(
@@ -378,10 +384,10 @@ def check_supported(cfg):
     for name in _NOT_YET:
         if getattr(cfg, name, False):
             raise ValueError(f"{name} is not ported to PyTorch yet")
-    if cfg.GRID_REAS != "conv3d":
+    if not cfg.TRANSFORMER and cfg.GRID_REAS not in _PORTED_FUSIONS:
         raise ValueError(
-            f"GRID_REAS={cfg.GRID_REAS!r} is not ported yet; the PyTorch "
-            f"port runs conv3d fusion only")
+            f"GRID_REAS={cfg.GRID_REAS!r} is not a GridFusion mode; the "
+            f"transformer fusion is switched on by TRANSFORMER = True")
     if cfg.COMPUTE_DTYPE not in ("float32", "bfloat16"):
         raise ValueError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}")
     if callable(cfg.BACKBONE):

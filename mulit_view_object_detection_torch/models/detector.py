@@ -4,13 +4,20 @@ Port of `mulit_view_object_detection_tpu/models/detector.py`. One module
 covers the variants the port runs, switched by config:
 
   NUM_VIEWS == 1   -> stock single-view Mask R-CNN
+  TRANSFORMER      -> the views' P5 tokens, lifted to world xyz by their
+                      depths, fused by a transformer and added to the main
+                      view's P5; every other level zeroed (or the main
+                      view's, with XFORMER_KEEP_MAIN_LEVELS). The FPN has
+                      no post-P ReLU here (detector.py:110-117).
   VANILLA          -> the main view's features, P2/P3 zeroed
-  otherwise        -> projected path: per level P4, P5, P6 the CUDA
+  otherwise        -> projected path: per level P4, P5, P6 a CUDA
                       unprojection kernel lifts every view into a voxel
-                      grid, the conv3d U-Net fuses it, the CUDA
-                      reprojection kernel samples it along the main
-                      view's rays and DepthCollapse folds the samples;
-                      P2/P3 are zeroed and never computed.
+                      grid (conv3d, ident: the fused kernel, views
+                      concatenated on channels and relu'd; add, mean,
+                      lstm3d: the per-view kernel), GridFusion fuses it,
+                      the CUDA reprojection kernel samples it along the
+                      main view's rays and DepthCollapse folds the
+                      samples; P2/P3 are zeroed and never computed.
 
 Views fold into the batch axis for backbone/FPN; the RPN on a zeroed
 level is evaluated on a 1x1 zero tile and tiled (exact: a conv stack on
@@ -25,7 +32,10 @@ float32, and geometry, scores, boxes and losses stay float32.
 gradient stopped, then `ops/targets.py::detection_targets_batch` samples
 the head ROIs with the priorities the batch carries, and both heads run
 on them. Gradients flow through the two geometry gathers into the
-backward kernels (or, on the CPU, their plain versions).
+backward kernels (or, on the CPU, their plain versions). The
+transformer's dropout draws its masks from the torch.Generator the batch
+carries as "dropout_generator" (train/step.py::draw_priorities puts it
+there); inference is deterministic.
 """
 
 from __future__ import annotations
@@ -38,23 +48,27 @@ from torch import nn
 
 from ..config import check_supported
 from ..kernels.reproject import project_grid_nearest
-from ..kernels.unproject import unproject_features_fused
+from ..kernels.unproject import unproject_features, unproject_features_fused
 from ..ops.boxes import norm_boxes
 from ..ops.detection import refine_detections
 from ..ops.image_meta import parse_image_meta
-from ..ops.projection import voxel_grid_points
+from ..ops.projection import unproject_rays, voxel_grid_points
 from ..ops.proposals import generate_proposals
 from ..ops.roi_align import pyramid_roi_align
 from ..ops.targets import detection_targets_batch
 from .fpn import FPN
 from .fusion import DepthCollapse, GridFusion
 from .heads import ClassifierHead, MaskHead
-from .layers import set_compute_dtype
+from .layers import DenseGeneral, set_compute_dtype
 from .resnet import BatchNorm, ResNet
 from .rpn import RPNHead
+from .transformer import LayerNorm, ViewFusionTransformer
 
 _INIT_LAYERS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
-                nn.Linear)
+                nn.Linear, DenseGeneral)
+# fusion modes that read one grid per view (the per-view unprojection
+# kernel); conv3d and ident read the fused kernel's view-concatenated grid
+PER_VIEW_FUSIONS = ("add", "mean", "lstm3d")
 
 
 class MaskRCNN(nn.Module):
@@ -67,21 +81,39 @@ class MaskRCNN(nn.Module):
                               else torch.float32)
         c = cfg.TOP_DOWN_PYRAMID_SIZE
         self.multiview = cfg.NUM_VIEWS > 1
-        self.projected = self.multiview and not cfg.VANILLA
-        self.zero_levels = (set(getattr(cfg, "ZERO_PG_LEVELS", (0, 1)))
-                            if self.multiview else set())
+        self.transformer = bool(cfg.TRANSFORMER)
+        self.projected = (self.multiview and not cfg.VANILLA
+                          and not self.transformer)
+        if self.transformer:
+            # every level but the fused P5 is zeroed (model_transformer.py:
+            # 2419-2438), unless the main view's features are kept
+            self.zero_levels = (set() if cfg.XFORMER_KEEP_MAIN_LEVELS
+                                else {0, 1, 2, 4})
+        elif self.multiview:
+            self.zero_levels = set(getattr(cfg, "ZERO_PG_LEVELS", (0, 1)))
+        else:
+            self.zero_levels = set()
         self.backbone = ResNet(cfg.BACKBONE,
                                getattr(cfg, "RESNET50_STAGE4_BLOCKS", None))
-        self.fpn = FPN(c, post_relu=self.multiview)
+        self.fpn = FPN(c, post_relu=self.multiview and not self.transformer)
+        if self.transformer:
+            # P5 is ceil(image / 32) square; one token per view and pixel
+            s5 = -(-int(cfg.IMAGE_SHAPE[0]) // cfg.BACKBONE_STRIDES[3])
+            self.view_transformer = ViewFusionTransformer(
+                cfg.XFORMER_NUM_LAYERS, cfg.XFORMER_D_MODEL,
+                cfg.XFORMER_NUM_HEADS, cfg.XFORMER_DFF, s5,
+                cfg.NUM_VIEWS * cfg.samples * s5 * s5, cfg.XFORMER_DROPOUT,
+                faithful_output=bool(cfg.XFORMER_FAITHFUL_PAIRING))
         if self.projected:
             # separate fusion/collapse weights per active level
             # (model_multi.py:394-463)
             for li in range(5):
                 if li not in self.zero_levels:
-                    self.add_module(f"grid_fusion_p{li + 2}",
-                                    GridFusion(c, cfg.NUM_VIEWS))
+                    self.add_module(f"grid_fusion_p{li + 2}", GridFusion(
+                        c, cfg.NUM_VIEWS, cfg.GRID_REAS))
                     self.add_module(f"depth_collapse_p{li + 2}",
-                                    DepthCollapse(c, cfg.samples))
+                                    DepthCollapse(c, cfg.samples,
+                                                  cfg.GRID_REAS))
         self.rpn = RPNHead(c, len(cfg.RPN_ANCHOR_RATIOS),
                            cfg.RPN_ANCHOR_STRIDE)
         self.classifier_head = ClassifierHead(
@@ -96,14 +128,19 @@ class MaskRCNN(nn.Module):
     def init_weights(self, generator):
         """flax's default initialisation, drawn on the CPU from
         `generator` so every device gets the same weights: lecun-normal
-        kernels (truncated at 2 std), zero biases, identity BatchNorms."""
+        kernels (truncated at 2 std), zero biases, identity BatchNorms
+        and LayerNorms; with XFORMER_ZERO_INIT a zero token projection."""
         for mod in self.modules():
             if isinstance(mod, _INIT_LAYERS):
                 w = mod.weight
                 transposed = isinstance(mod, (nn.ConvTranspose2d,
                                               nn.ConvTranspose3d))
-                fan_in = (w.shape[0] * math.prod(w.shape[2:]) if transposed
-                          else w[0].numel())
+                if isinstance(mod, DenseGeneral):
+                    fan_in = mod.fan_in
+                elif transposed:
+                    fan_in = w.shape[0] * math.prod(w.shape[2:])
+                else:
+                    fan_in = w[0].numel()
                 std = (1.0 / fan_in) ** 0.5 / .87962566103423978
                 t = torch.empty(w.shape, dtype=torch.float32)
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
@@ -115,6 +152,11 @@ class MaskRCNN(nn.Module):
                 mod.bias.zero_()
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        if self.transformer and self.config.XFORMER_ZERO_INIT:
+            self.view_transformer.token_proj.weight.zero_()
 
     def _grid_points(self, device):
         if device not in self._grid_pts:
@@ -125,10 +167,12 @@ class MaskRCNN(nn.Module):
     def forward(self, batch, training=False):
         """batch: images [B, V, H, W, 3] molded float; image_meta
         [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
-        [B, 3, 3] float32 (multi-view). Training adds gt_class_ids [B, G],
+        [B, 3, 3] float32 (multi-view); depths [B, V, h5, w5] float32 at
+        P5's resolution (TRANSFORMER). Training adds gt_class_ids [B, G],
         gt_boxes [B, G, 4] normalized, gt_masks [B, G, mh, mw], and the
         ROI sampling priorities pos_priority, neg_priority
-        [B, POST_NMS_ROIS_TRAINING] uniform in [0, 1). All tensors on the
+        [B, POST_NMS_ROIS_TRAINING] uniform in [0, 1), and (TRANSFORMER
+        with XFORMER_DROPOUT > 0) dropout_generator. All tensors on the
         model's device. Returns the JAX module's outputs for the mode.
         Inference computes no gradient."""
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
@@ -143,7 +187,8 @@ class MaskRCNN(nn.Module):
         x = images.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
         _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype))
         levels = self.fpn(c2, c3, c4, c5)
-        fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w))
+        fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w),
+                                              training)
 
         # RPN, zero levels constant-folded
         k = len(cfg.RPN_ANCHOR_RATIOS)
@@ -227,37 +272,66 @@ class MaskRCNN(nn.Module):
         })
         return outputs
 
-    def _fuse_views(self, batch, levels, b, v, image_shape):
+    def _fuse_views(self, batch, levels, b, v, image_shape, training):
         """levels: 5 maps [B*V, C, h, w]. Returns ([P2..P6] as
         [B, C, h, w], zero level indices)."""
         cfg = self.config
-        if v == 1:
+        if v == 1 and not self.transformer:
             return levels, set()
         levels = [p.reshape(b, v, *p.shape[1:]) for p in levels]
         out = []
-        if not self.projected:                    # VANILLA
+        if not self.projected:                    # TRANSFORMER, VANILLA
+            fused = (self._fuse_p5(batch, levels[3], image_shape, training)
+                     if self.transformer else None)
             for li, p in enumerate(levels):
                 main = p[:, 0]
-                out.append(torch.zeros_like(main) if li in self.zero_levels
-                           else main)
+                if li in self.zero_levels:
+                    out.append(torch.zeros_like(main))
+                elif li == 3 and fused is not None:
+                    out.append(main + fused.to(main.dtype))
+                else:
+                    out.append(main)
             return out, set(self.zero_levels)
 
         grid_pts = self._grid_points(levels[0].device)
         grid_shape = (cfg.nvox, cfg.nvox, cfg.nvox_z)
         rcam = batch["Rcam"].float()
         kmat = batch["Kmat"].float()
+        out = []
         for li, p in enumerate(levels):
             if li in self.zero_levels:            # PG2/PG3 memory cap
                 out.append(torch.zeros_like(p[:, 0]))
                 continue
             feats = p.permute(0, 1, 3, 4, 2).contiguous()   # [B,V,h,w,C]
-            vox = unproject_features_fused(feats, rcam, kmat, image_shape,
-                                           grid_pts, grid_shape, relu=True)
-            fusion = getattr(self, f"grid_fusion_p{li + 2}")
-            collapse = getattr(self, f"depth_collapse_p{li + 2}")
-            fused = fusion(vox.permute(0, 4, 1, 2, 3))      # [B,C,X,Y,Z]
+            if cfg.GRID_REAS in PER_VIEW_FUSIONS:
+                vox = unproject_features(feats, rcam, kmat, image_shape,
+                                         grid_pts, grid_shape)
+                grids = vox.permute(0, 1, 5, 2, 3, 4)       # [B,V,C,X,Y,Z]
+            else:
+                vox = unproject_features_fused(feats, rcam, kmat,
+                                               image_shape, grid_pts,
+                                               grid_shape, relu=True)
+                grids = vox.permute(0, 4, 1, 2, 3)          # [B,V*C,X,Y,Z]
+            fused = getattr(self, f"grid_fusion_p{li + 2}")(grids)
             rays = project_grid_nearest(
                 fused.permute(0, 2, 3, 4, 1).contiguous(), kmat,
                 image_shape, p.shape[3], cfg.samples, cfg)
-            out.append(collapse(rays))
+            out.append(getattr(self, f"depth_collapse_p{li + 2}")(rays))
         return out, set(self.zero_levels)
+
+    def _fuse_p5(self, batch, p5, image_shape, training):
+        """The transformer branch (detector.py:280-295): p5 [B, V, C, h, w]
+        -> the fused map [B, C, h, w] to add to the main view's P5."""
+        cfg = self.config
+        generator = batch.get("dropout_generator") if training else None
+        if generator is None and training and cfg.XFORMER_DROPOUT > 0:
+            raise ValueError("training the transformer with dropout needs "
+                             "batch['dropout_generator']")
+        positions, tokens = unproject_rays(
+            p5.permute(0, 1, 3, 4, 2).float(), batch["Rcam"].float(),
+            batch["Kmat"].float(), batch["depths"].float(), image_shape,
+            samples=cfg.samples,
+            faithful_pairing=bool(cfg.XFORMER_FAITHFUL_PAIRING))
+        fused = self.view_transformer(tokens.to(self.compute_dtype),
+                                      positions, generator)
+        return fused.permute(0, 3, 1, 2)

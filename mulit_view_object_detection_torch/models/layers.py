@@ -12,6 +12,8 @@ bfloat16. The detector sets `compute_dtype` on every layer it builds.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,7 +59,30 @@ class Linear(_Cast, nn.Linear):
         return F.linear(*self._cast(x))
 
 
-CAST_LAYERS = (Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, Linear)
+class DenseGeneral(_Cast, nn.Module):
+    """flax's DenseGeneral as MultiHeadDotProductAttention uses it: the
+    input's last len(in_shape) axes contract with the kernel's to give
+    out_shape. `weight` is the flax kernel [*in_shape, *out_shape] with
+    its input axes moved last, [*out_shape, *in_shape] (Linear's order);
+    `bias` is out_shape."""
+
+    def __init__(self, in_shape, out_shape):
+        super().__init__()
+        self.n_in = len(in_shape)
+        self.fan_in = math.prod(in_shape)
+        self.weight = nn.Parameter(torch.empty(*out_shape, *in_shape))
+        self.bias = nn.Parameter(torch.zeros(*out_shape))
+
+    def forward(self, x):
+        x, w, b = self._cast(x)
+        k = self.n_in
+        return torch.tensordot(
+            x, w, dims=(list(range(x.ndim - k, x.ndim)),
+                        list(range(w.ndim - k, w.ndim)))) + b
+
+
+CAST_LAYERS = (Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, Linear,
+               DenseGeneral)
 
 
 def set_compute_dtype(module, dtype):

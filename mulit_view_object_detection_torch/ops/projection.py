@@ -1,5 +1,6 @@
-"""Projective multi-view geometry in torch, and the plain versions of the
-two gathers that `kernels/` runs as CUDA kernels.
+"""Projective multi-view geometry in torch, the transformer's
+depth-conditioned ray lift, and the plain versions of the gathers that
+`kernels/` runs as CUDA kernels.
 
 Port of `mulit_view_object_detection_tpu/ops/projection.py` plus the
 coordinate prologues of its Pallas wrappers
@@ -115,7 +116,7 @@ def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
 
 
 # ---------------------------------------------------------------------------
-# Plain unprojection gather and its backward (oracles of
+# Plain unprojection gathers and their backward (oracles of
 # kernels/unproject.py)
 # ---------------------------------------------------------------------------
 
@@ -141,18 +142,55 @@ def _bilinear_taps(x, y, fh, fw):
     return taps
 
 
-def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
-    """feats [B*V, fh*fw, C]; x, y [B*V, N] float32 feature-plane coords.
-    Returns [B, N, V*C] in feats' dtype: per view the 4-tap bilinear
-    sample with each out-of-bounds tap zeroed, views concatenated on
-    channels (view-major), optionally relu'd. Accumulates in float32."""
-    bv, p, c = feats.shape
+def _gather_taps(feats, x, y, fh, fw):
+    """feats [BV, fh*fw, C]; x, y [BV, N]. The float32 sum
+    t00 + t01 + t10 + t11 [BV, N, C], each tap value * weight."""
+    bv, _, c = feats.shape
     n = x.shape[1]
     f = feats.float()
     out = 0.0
     for idx, w in _bilinear_taps(x, y, fh, fw):
         vals = torch.gather(f, 1, idx[..., None].expand(bv, n, c))
         out = out + vals * w[..., None]
+    return out
+
+
+def _scatter_taps(g, x, y, fh, fw):
+    """Transpose of `_gather_taps`: g [BV, N, C] float32 times each tap
+    weight added into the tap it was read from. Returns [BV, fh*fw, C]
+    float32."""
+    bv, n, c = g.shape
+    p = fh * fw
+    base = torch.arange(bv, device=g.device)[:, None] * p
+    df = torch.zeros(bv * p, c, dtype=torch.float32, device=g.device)
+    for idx, w in _bilinear_taps(x, y, fh, fw):
+        df.index_add_(0, (base + idx).reshape(-1),
+                      (g * w[..., None]).reshape(-1, c))
+    return df.reshape(bv, p, c)
+
+
+def bilinear_gather(feats, x, y, fh, fw):
+    """feats [B*V, fh*fw, C]; x, y [B*V, N] float32 feature-plane coords.
+    Returns [B*V, N, C] in feats' dtype: per view the 4-tap bilinear
+    sample with each out-of-bounds tap zeroed, accumulated in float32 and
+    rounded once (the Pallas kernel's rule, unproject_pallas.py:98-103)."""
+    return _gather_taps(feats, x, y, fh, fw).to(feats.dtype)
+
+
+def bilinear_gather_bwd(g, x, y, fh, fw, dtype):
+    """Gradient of `bilinear_gather` with respect to feats: each element
+    of g [B*V, N, C] times each tap weight added into the tap it was read
+    from, in float32. Returns dfeats [B*V, fh*fw, C] in `dtype`."""
+    return _scatter_taps(g.float(), x, y, fh, fw).to(dtype)
+
+
+def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
+    """`bilinear_gather` with the views concatenated on channels: returns
+    [B, N, V*C] (view-major) in feats' dtype, optionally relu'd before the
+    rounding."""
+    bv, _, c = feats.shape
+    n = x.shape[1]
+    out = _gather_taps(feats, x, y, fh, fw)
     if relu:
         out = torch.relu(out)
     out = out.to(feats.dtype)
@@ -173,13 +211,7 @@ def bilinear_gather_fused_bwd(g, saved, x, y, fh, fw, v, relu, dtype):
     if relu:
         gf = torch.where(saved > 0, gf, 0.0)
     gbv = gf.reshape(b, n, v, c).transpose(1, 2).reshape(b * v, n, c)
-    p = fh * fw
-    base = torch.arange(b * v, device=g.device)[:, None] * p
-    df = torch.zeros(b * v * p, c, dtype=torch.float32, device=g.device)
-    for idx, w in _bilinear_taps(x, y, fh, fw):
-        df.index_add_(0, (base + idx).reshape(-1),
-                      (gbv * w[..., None]).reshape(-1, c))
-    return df.reshape(b * v, p, c).to(dtype)
+    return _scatter_taps(gbv, x, y, fh, fw).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -231,3 +263,46 @@ def zslice_gather_bwd(g, xg, yg, iz, grid_shape, dtype):
                      device=g.device)
     dg.index_add_(0, flat.reshape(-1), contrib.reshape(-1, c))
     return dg.reshape(b, nx, ny, nz, c).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Depth-conditioned ray lift (transformer fusion)
+# ---------------------------------------------------------------------------
+
+def unproject_rays(feats, Rcam, Kmat, depth, image_shape, samples=1,
+                   faithful_pairing=False):
+    """Backproject each feature-map pixel along its ray to its measured
+    depth (`ops/projection.py::unproject_rays` of the JAX package,
+    model_transformer.py:372-424).
+
+    feats [B, V, fh, fw, C]; Rcam [B, V, 3, 4] cam->world; Kmat [B, 3, 3];
+    depth [B, V, fh, fw]. Returns (positions [B, V*fh*fw, 3] world xyz,
+    tokens [B, V*fh*fw, C]), token order (v, y, x), each token paired
+    with its own ray. `faithful_pairing` reproduces the reference's two
+    deviations for its parity goldens: rays solved against feature-scale
+    pixel vectors [x, y, 1], and depth and features flattened transposed
+    (x-major) against a row-major ray grid."""
+    b, v, fh, fw, c = feats.shape
+    if samples != 1:
+        raise ValueError(
+            f"unproject_rays: samples must be 1 (got {samples}); the "
+            f"depth-conditioned lift has one measured depth per ray")
+    npix = fh * fw
+    rsz = fh / float(image_shape[0])
+    xs, ys = np.meshgrid(np.arange(0.5, fw, 1.0, dtype=np.float32),
+                         np.arange(0.5, fh, 1.0, dtype=np.float32))
+    z = 1.0 if faithful_pairing else rsz
+    pix = torch.from_numpy(np.stack(
+        [xs.ravel(), ys.ravel(), np.full(npix, z, np.float32)],
+        axis=0)).to(Kmat.device)
+    rays = torch.einsum("bij,jn->bin", torch.linalg.inv(Kmat * rsz), pix)
+    if faithful_pairing:
+        if fh != fw:
+            raise ValueError("faithful pairing needs a square feature map")
+        depth = depth.transpose(2, 3)
+        feats = feats.transpose(2, 3)
+    xc = rays[:, None] * depth.reshape(b, v, 1, npix)      # [B, V, 3, npix]
+    xc_h = torch.cat([xc, xc.new_ones(b, v, 1, npix)], dim=2)
+    xw = torch.einsum("bvij,bvjn->bvin", Rcam, xc_h)       # [B, V, 3, npix]
+    positions = xw.transpose(2, 3).reshape(b, -1, 3)
+    return positions, feats.reshape(b, -1, c)

@@ -40,8 +40,12 @@ def _bilinear(flat, bidx, off, width, ys, xs, h_lim, w_lim):
     lx = xs - x0f
     hmax = h_lim[..., None].long()
     wmax = w_lim[..., None].long()
-    y0 = torch.minimum(y0f.clamp_min(0), h_lim[..., None]).long()
-    x0 = torch.minimum(x0f.clamp_min(0), w_lim[..., None]).long()
+    # a NaN coordinate (a box from overflowed deltas) reads row/column 0
+    # and is masked below, as the JAX gather clamps its index
+    y0 = torch.minimum(y0f.clamp_min(0), h_lim[..., None]).nan_to_num(
+        0.0).long()
+    x0 = torch.minimum(x0f.clamp_min(0), w_lim[..., None]).nan_to_num(
+        0.0).long()
     y1 = torch.minimum(y0 + 1, hmax)
     x1 = torch.minimum(x0 + 1, wmax)
 

@@ -5,7 +5,9 @@ on-device ROI sampling, the five losses plus L2 regularization, gradients
 masked to the trainable stage, per-tensor clipnorm, an SGD-with-momentum
 update. Where the JAX step draws the sampling priorities from its
 "sampling" key inside the model, this step draws them from an explicit
-torch.Generator (`draw_priorities`) and puts them in the batch.
+torch.Generator (`draw_priorities`) and puts them in the batch; the
+transformer's dropout, which the JAX step draws from its "dropout" key,
+draws its masks from the same generator.
 """
 
 from __future__ import annotations
@@ -44,12 +46,15 @@ def compute_losses(outputs, batch, config):
 def draw_priorities(batch, config, generator):
     """Add the ROI sampling priorities (two [B, POST_NMS_ROIS_TRAINING]
     uniform draws, positives then negatives) to `batch`, drawn from
-    `generator` on its own device and moved to the images' device."""
+    `generator` on its own device and moved to the images' device, and
+    the generator itself as "dropout_generator" (the transformer's
+    dropout draws from it during the forward)."""
     b = batch["images"].shape[0]
     shape = (2, b, config.POST_NMS_ROIS_TRAINING)
     pri = torch.rand(shape, generator=generator, device=generator.device)
     pri = pri.to(batch["images"].device)
-    return dict(batch, pos_priority=pri[0], neg_priority=pri[1])
+    return dict(batch, pos_priority=pri[0], neg_priority=pri[1],
+                dropout_generator=generator)
 
 
 def loss_and_grads(model, batch, config, mask):

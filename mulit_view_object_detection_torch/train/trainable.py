@@ -22,7 +22,7 @@ from __future__ import annotations
 import re
 
 from ..models.resnet import BatchNorm
-from ..utils.convert import flax_path
+from ..utils.convert import flax_path, ln_module_names
 
 HEAD_TOPS = ("rpn", "classifier_head", "mask_head", "fpn", "depth_collapse",
              "view_transformer")
@@ -75,7 +75,9 @@ def path_trainable(path, stage):
 def param_paths(model):
     """{parameter name: flax path} for every parameter of `model`."""
     bns = {n for n, m in model.named_modules() if isinstance(m, BatchNorm)}
-    return {n: flax_path(n, bns) for n, _ in model.named_parameters()}
+    params = dict(model.named_parameters())
+    lns = ln_module_names(params, bns)
+    return {n: flax_path(n, bns, lns) for n in params}
 
 
 def trainable_mask(model, stage):

@@ -125,6 +125,59 @@ def test_conv_transpose_3d_same_pinned(n):
                                ref, atol=1e-5)
 
 
+def _slice3_config(kind):
+    """TinyMultiView with each of slice 3's weight trees: the add, ident
+    and lstm3d fusions (fuse_bn, ident_conv, the ConvLSTM's gate conv, the
+    1x1 depth collapse with its one-feature BN) and the transformer
+    (multi-head attention, LayerNorms, Dense layers, token projection)."""
+    attrs = {"GRID_REAS": kind}
+    if kind == "transformer":
+        attrs = {"TRANSFORMER": True, "TOP_DOWN_PYRAMID_SIZE": 12,
+                 "XFORMER_D_MODEL": 12, "XFORMER_NUM_HEADS": 2,
+                 "XFORMER_DFF": 16, "XFORMER_NUM_LAYERS": 2, "samples": 1}
+    return type(f"Tiny_{kind}", (TinyMultiView,), attrs)()
+
+
+@pytest.mark.parametrize("kind", ["add", "ident", "lstm3d", "transformer"])
+def test_slice3_trees_round_trip_and_load_strictly(kind):
+    """Each slice 3 tree: every flax leaf lands in exactly one torch
+    tensor of the right shape, the model loads it strictly, and the round
+    trip back to flax is bit-exact."""
+    cfg = _slice3_config(kind)
+    variables = random_variables(cfg, seed=1)
+    flat = flatten_dict(variables)
+    sd = flax_to_torch(variables)
+    model = MaskRCNN(cfg)
+    assert set(sd) == set(model.state_dict()) and len(sd) == len(flat)
+    model.load_state_dict(sd, strict=True)
+    back = flatten_dict(torch_to_flax(model.state_dict()))
+    assert set(back) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k], err_msg="/".join(k))
+    leaves = {"/".join(k[1:]) for k in flat}
+    expect = {
+        "add": ["grid_fusion_p4/fuse_bn/BatchNorm_0/scale",
+                "depth_collapse_p4/collapse/kernel",
+                "depth_collapse_p4/bn/BatchNorm_0/scale"],
+        "ident": ["grid_fusion_p5/ident_conv/kernel"],
+        "lstm3d": ["grid_fusion_p6/convlstm/cell/lstm_gates/kernel"],
+        "transformer": ["view_transformer/layer1/mha/out/kernel",
+                        "view_transformer/layer0/ln2/scale",
+                        "view_transformer/token_proj/kernel"]}[kind]
+    assert set(expect) <= leaves
+    if kind == "lstm3d":
+        c = cfg.TOP_DOWN_PYRAMID_SIZE
+        assert sd["grid_fusion_p6.convlstm.cell.lstm_gates.weight"].shape == (
+            4 * c, 2 * c, 3, 3, 3)
+    if kind == "transformer":
+        w = sd["view_transformer.layer0.mha.query.weight"]
+        assert w.shape == (2, 6, 12)        # [heads, d / heads, d]
+        np.testing.assert_array_equal(
+            w.numpy(), np.moveaxis(flat[("params", "view_transformer",
+                                         "layer0", "mha", "query",
+                                         "kernel")], 0, -1))
+
+
 def test_mask_deconv_matches_tf_keras_golden():
     """The converter's ConvTranspose transform on a REAL tf.keras
     Conv2DTranspose (tests/fixtures/golden_tf.npz), through the h5

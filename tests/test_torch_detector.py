@@ -299,8 +299,9 @@ def test_engine_detect_matches_jax_engine(tmp_path):
 def test_engine_refuses_what_it_cannot_run(tmp_path):
     """No fallback hides the device: the engine defaults to the card, and
     device='cuda' without CUDA raises; the TPU-only lowerings and the
-    paths not ported yet (TRAIN_BN, REMAT among them) are refused, not
-    approximated."""
+    paths not ported yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION among
+    them) are refused, not approximated, and so is a GRID_REAS that no
+    GridFusion mode has."""
     cfg = SliceConfig()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -310,14 +311,15 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="mode"):
         MaskRCNN("serving", cfg, str(tmp_path), device="cpu")
     for flag in ("FOLD_BN", "PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
-                 "CROSS_LEVEL_FUSION", "TRAIN_BN", "REMAT", "TRANSFORMER"):
+                 "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT", "TRAIN_BN",
+                 "REMAT", "TRILINEAR_REPROJECTION"):
         bad = SliceConfig()
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
             check_supported(bad)
     bad = SliceConfig()
-    bad.GRID_REAS = "lstm3d"
-    with pytest.raises(ValueError, match="conv3d"):
+    bad.GRID_REAS = "transformer"
+    with pytest.raises(ValueError, match="GRID_REAS"):
         check_supported(bad)
 
 

@@ -7,8 +7,9 @@ jax nor the repo's conftest, so on a GPU host it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Tolerances: the unprojection kernel uses explicitly rounded float32
-operations in the plain version's order, so float32 agrees bit for bit;
+Tolerances: the unprojection kernels (fused and per-view layouts) use
+explicitly rounded float32 operations in the plain version's order, so
+float32 agrees bit for bit;
 in bfloat16 both round the same float32 sum once, also exact. The
 reprojection copies values: exact. The backward kernels sum with float32
 atomics in no fixed order (so does the plain `index_add_` on the card):
@@ -151,6 +152,63 @@ def test_reproject_bwd_kernel_matches_plain(dev, dtype, iz):
             assert not bool(got[..., z, :].any()), z
 
 
+def _edge_coords(g, bv, n, fh, fw):
+    """Every border, x and y in (-1, 0), an in-bounds x0 == 0 column, and
+    exact .5 ties."""
+    x = torch.rand(bv, n, generator=g) * (fw + 2.0) - 1.5
+    y = torch.rand(bv, n, generator=g) * (fh + 2.0) - 1.5
+    x[:, :64] = -torch.rand(64, generator=g) * 0.98 - 0.01
+    y[:, 64:128] = -torch.rand(64, generator=g) * 0.98 - 0.01
+    x[:, 128:192] = 0.25
+    x[:, 192:256] = torch.arange(64) % (fw + 2) - 0.5
+    return x, y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
+def test_unproject_view_kernel_matches_plain(dev, dtype, fh, fw):
+    """The per-view layout [B*V, N, C] (mvod_unproject) against the plain
+    bilinear_gather: equal bit for bit."""
+    g = torch.Generator().manual_seed(fh * 100 + fw + 3)
+    bv, c, n = 8, 64, 3000
+    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype).to(dev)
+    x, y = (t.to(dev) for t in _edge_coords(g, bv, n, fh, fw))
+    ref = P.bilinear_gather(feats, x, y, fh, fw)
+    before, fused = unproject.view_launches, unproject.launches
+    got = unproject.bilinear_gather(feats, x, y, fh, fw)
+    torch.cuda.synchronize()
+    assert unproject.view_launches == before + 1
+    assert unproject.launches == fused
+    assert got.dtype == dtype and got.shape == (bv, n, c)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
+def test_unproject_view_bwd_kernel_matches_plain(dev, dtype, fh, fw):
+    """Gradient of the per-view gather through its autograd Function
+    (mvod_unproject_bwd) against the plain index_add_ scatter."""
+    g = torch.Generator().manual_seed(fh * 100 + fw + 5)
+    bv, c, n = 8, 64, 3000
+    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype).to(dev)
+    x, y = (t.to(dev) for t in _edge_coords(g, bv, n, fh, fw))
+    gout = torch.randn(bv, n, c, generator=g).to(dtype).to(dev)
+    leaf = feats.clone().requires_grad_()
+    out = unproject.bilinear_gather(leaf, x, y, fh, fw)
+    before = unproject.view_bwd_launches
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert unproject.view_bwd_launches == before + 1
+    ref = P.bilinear_gather_bwd(gout, x, y, fh, fw, dtype)
+    got = leaf.grad
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-5 * float(ref.float().abs().max())
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    assert bool((err <= tol).all()), float(err.max())
+
+
 def test_kernel_wrappers_reject_bad_inputs(dev):
     feats = torch.zeros(4, 16, 8, device=dev)
     xy = torch.zeros(4, 10, device=dev)
@@ -166,6 +224,13 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         unproject.gather_fused_bwd(g, g, xy[:, :5].contiguous(), xy, 4, 4,
                                    2, relu=True)
+    with pytest.raises(TypeError):
+        unproject.bilinear_gather(feats.half(), xy, xy, 4, 4)
+    with pytest.raises(ValueError):
+        unproject.bilinear_gather(feats, xy, xy, 4, 5)
+    with pytest.raises(ValueError):
+        unproject.gather_bwd(torch.zeros(4, 10, 8, device=dev),
+                             xy[:, :5].contiguous(), xy, 4, 4)
     grid = torch.zeros(1, 2, 2, 2, 8, device=dev)
     gxy = torch.zeros(1, 2, 4, device=dev)
     with pytest.raises(ValueError):
