@@ -18,8 +18,18 @@ Phases, one line each (any failure exits non-zero):
                version and of F.grid_sample (the library call that
                computes the same gather, or its backward: timed only,
                never used by the port); the median host-clock call time;
-               and the bound (bytes over 3.35 TB/s or operations over
-               67 TFLOP/s, whichever is larger) from this run's inputs.
+               the bound (bytes over 3.35 TB/s or operations over
+               67 TFLOP/s, whichever is larger) from this run's inputs,
+               the achieved GB/s and the share of the bound (or, where a
+               kernel runs under its HBM bound because the repeated calls
+               are served from the 50 MB L2, l2_served=True and no
+               share). The per-view lines also name the variant launched
+               and the largest and mean number of valid taps that land on
+               one pixel of a view (the adds a direct scatter makes to one
+               address per channel). Then one level of each other
+               per-view variant against plain: the scalar forward and
+               the direct backward (P4 features and g offset by one
+               element, so not 16-byte aligned).
   4. main    — inference: the engine (compat.MaskRCNN.detect) at the
                flagship config (2 views at 640^2, ResNet-50 with a 5-block
                stage 4, pyramid 64, conv3d, 40^3 grid, 20 samples,
@@ -120,7 +130,8 @@ TOL = {("unproject", torch.float32): 1e-5,
        ("reproject", torch.float32): 0.0,
        ("reproject", torch.bfloat16): 0.0}
 # Backward: both sides sum in float32 with atomics in no fixed order (up
-# to ~2600 terms per element at P6), so |got - ref| <= 1e-4 * max|ref|;
+# to 4,720 terms per element at P6, phase 3's adds_per_pixel_max), so
+# |got - ref| <= 1e-4 * max|ref|;
 # bfloat16 casts that sum once: where the two sums straddle a rounding
 # boundary they differ by one bf16 step of the element more.
 BWD_REL = 1e-4
@@ -156,8 +167,13 @@ JSON_NAMES = {"unproject": "unproject_fused",
 GRAD_TOL = 1e-3
 GRAD_FLIP_TOL = 1e-2
 GRAD_FLIP_SHARE = 0.05
-SOURCES = {"unproject": "mulit_view_object_detection_torch/csrc/unproject.cu",
-           "reproject": "mulit_view_object_detection_torch/csrc/reproject.cu"}
+_CSRC = "mulit_view_object_detection_torch/csrc/"
+SOURCES = {"unproject": _CSRC + "unproject.cu",
+           "unproject_bwd": _CSRC + "unproject.cu",
+           "unproject_view": _CSRC + "unproject_view.cu",
+           "unproject_view_bwd": _CSRC + "unproject_view.cu",
+           "reproject": _CSRC + "reproject.cu",
+           "reproject_bwd": _CSRC + "reproject.cu"}
 KERNELS = ("unproject", "unproject_bwd", "unproject_view",
            "unproject_view_bwd", "reproject", "reproject_bwd")
 
@@ -459,6 +475,27 @@ def _unproject_view_cases(feats, x, y, s, dtype):
     }
 
 
+def adds_per_pixel(x, y, s):
+    """(largest, mean) number of valid taps of x, y [BV, N] that land on
+    one pixel of one view's s x s map: the adds a direct scatter makes to
+    one address per channel."""
+    counts = torch.zeros(x.shape[0] * s * s, device=x.device)
+    base = torch.arange(x.shape[0], device=x.device)[:, None] * s * s
+    for idx, _, valid in plain._bilinear_taps(x, y, s, s):
+        hit = (base + idx)[valid]
+        counts.index_add_(0, hit, torch.ones_like(hit, dtype=torch.float32))
+    return int(counts.max()), float(counts.mean())
+
+
+def launched_variant(fn):
+    """fn's result and the per-view variant it launched."""
+    before = dict(unproject.view_variants)
+    out = fn()
+    grew = [k for k, n in unproject.view_variants.items()
+            if n > before.get(k, 0)]
+    return out, ",".join(grew) or None
+
+
 def _reproject_cases(grid, xg, yg, iz, dtype):
     b, nx, ny, nz, c = grid.shape
     s_d, npix = xg.shape[1], xg.shape[2]
@@ -528,6 +565,48 @@ def _check(name, got, want, dtype):
     return max_err, tol
 
 
+def rate(nbytes, ms, b_ms):
+    """Achieved GB/s and the share of the bound; where the kernel ran
+    under its HBM bound, the calls were served from L2: no share."""
+    out = {"gbps": round(nbytes / ms / 1e6, 1)}
+    if ms < b_ms:
+        out["l2_served"] = True
+    else:
+        out["bound_share"] = round(b_ms / ms, 3)
+    return out
+
+
+def view_variant_checks(rcam4, kmat, pts, gen):
+    """One level (P4: 4 views, 40^2, C=64, 40^3 voxels) of the per-view
+    variants that the flagship tensors do not reach, against plain: the
+    scalar forward and the direct backward, on features and g offset by
+    one element from their allocations (not 16-byte aligned)."""
+    bv, c, s = 4, 64, LEVELS["P4"]
+    x, y = plain.project_voxel_coords(rcam4, kmat, (640, 640), pts, s, s)
+    x, y = x.contiguous(), y.contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = torch.randn(bv * s * s * c + 1, generator=gen).to(
+            DEV, dtype)[1:].view(bv, s * s, c)
+        g = torch.randn(bv * x.shape[1] * c + 1, generator=gen).to(
+            DEV, dtype)[1:].view(bv, x.shape[1], c)
+        checks = (("unproject_view", "fwd_scalar",
+                   lambda: unproject.gather(feats, x, y, s, s),
+                   lambda: plain.bilinear_gather(feats, x, y, s, s)),
+                  ("unproject_view_bwd", "bwd_direct",
+                   lambda: unproject.gather_bwd(g, x, y, s, s),
+                   lambda: plain.bilinear_gather_bwd(g, x, y, s, s, dtype)))
+        for name, expect, kern, ref in checks:
+            got, variant = launched_variant(kern)
+            want = ref()
+            torch.cuda.synchronize()
+            err, tol = _check(name, got, want, dtype)
+            if variant != expect:
+                raise RuntimeError(f"{name} launched {variant}, not {expect}")
+            say("kernels", kernel=name, variant=variant, level="P4",
+                dtype=str(dtype).split(".")[1], max_abs_err=err, tol=tol,
+                ms=round(device_ms(kern), 5))
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -562,8 +641,10 @@ def phase_kernels():
             cases.update(_unproject_view_cases(
                 feats4, x4.contiguous(), y4.contiguous(), s, dtype))
             cases.update(_reproject_cases(grid, xg, yg, iz, dtype))
+            adds = adds_per_pixel(x4, y4, s)
             for name, (kern, ref, lib, nbytes, flops) in cases.items():
-                got, want = kern(), ref()
+                got, variant = launched_variant(kern)
+                want = ref()
                 torch.cuda.synchronize()
                 err, tol = _check(name, got, want, dtype)
                 # runs of the same kernel on the same inputs: the spread
@@ -575,12 +656,22 @@ def phase_kernels():
                                         device_ms(lib))
                 call_ms, plain_call_ms = median_ms(kern), median_ms(ref)
                 b_ms, b_by = bound_ms(nbytes, flops)
+                extra = {}
+                if name.startswith("unproject_view"):
+                    want_variant = ("bwd_walk" if name.endswith("_bwd")
+                                    else "fwd_vector")
+                    if variant != want_variant:
+                        raise RuntimeError(f"{name} launched {variant}, "
+                                           f"not {want_variant}")
+                    extra = dict(variant=variant, adds_per_pixel_max=adds[0],
+                                 adds_per_pixel_mean=round(adds[1], 2))
                 say("kernels", kernel=name, level=level,
                     dtype=str(dtype).split(".")[1], shape=list(got.shape),
                     max_abs_err=err, tol=tol, run_to_run=spread,
                     ms=round(ms, 5), plain_ms=round(plain_ms, 5),
                     library_ms=round(lib_ms, 5), bound_ms=round(b_ms, 5),
                     bound_by=b_by, mbytes=round(nbytes / 1e6, 3),
+                    **rate(nbytes, ms, b_ms), **extra,
                     call_ms=round(call_ms, 4),
                     plain_call_ms=round(plain_call_ms, 4),
                     view2_voxels_outside=round(outside, 3))
@@ -589,6 +680,7 @@ def phase_kernels():
                 if level == "P4" and dtype == torch.bfloat16:
                     rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=lib_ms)
+    view_variant_checks(rcam4, kmat, pts, g)
     return record
 
 
@@ -607,6 +699,7 @@ def request_depths(rng, n, cfg):
 def reset_counts():
     unproject.launches = unproject.bwd_launches = 0
     unproject.view_launches = unproject.view_bwd_launches = 0
+    unproject.view_variants.clear()
     reproject.launches = reproject.bwd_launches = 0
 
 
@@ -1007,7 +1100,7 @@ def main():
         by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({
             "name": JSON_NAMES[key], "route": "cuda",
-            "source": SOURCES[key.split("_")[0]],
+            "source": SOURCES[key],
             "replaces": REPLACES[key],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -39,10 +39,12 @@ _SIGNATURES = {
     # g, xg, yg, iz (host), acc, dgrid, b, nx, ny, nz, c, s_d, npix,
     # is_bf16, stream
     "mvod_reproject_nearest_bwd": [_P] * 6 + [_I] * 8 + [_P],
-    # feats, x, y, out, bv, fh, fw, c, n, is_bf16, stream
-    "mvod_unproject": [_P] * 4 + [_I] * 6 + [_P],
-    # g, x, y, acc, dfeats, bv, fh, fw, c, n, is_bf16, stream
-    "mvod_unproject_bwd": [_P] * 5 + [_I] * 6 + [_P],
+    # csrc/unproject_view.cu: feats, x, y, out, bv, fh, fw, c, n, vec, gx,
+    # vy, is_bf16, stream
+    "mvod_unproject": [_P] * 4 + [_I] * 9 + [_P],
+    # g, x, y, acc, dfeats, bv, fh, fw, c, n, gx, lanes, chunk, is_bf16,
+    # stream
+    "mvod_unproject_bwd": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

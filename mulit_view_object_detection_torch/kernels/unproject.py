@@ -4,21 +4,26 @@ Replaces the Pallas TPU kernels of
 `mulit_view_object_detection_tpu/kernels/unproject_pallas.py`:
 `bilinear_gather_fused` (forward, `_fwd_kernel_fused`), `bilinear_gather`
 (forward, `_fwd_kernel`) and their backward (`_bwd_kernel`, reached from
-`_bwd_rule_fused` and `_bwd_rule`); source `csrc/unproject.cu`. The TPU
-kernels recast the 4-tap bilinear gather and its transpose as one-hot
-matmuls for the MXU (O(N*P*C) work); on Hopper each output element is at
-most 4 loads, and each gradient element at most 4 atomic adds, so the
-kernels are bound by bytes, one thread per element of the output (or of
-the gradient), channel fastest.
+`_bwd_rule_fused` and `_bwd_rule`). The TPU kernels recast the 4-tap
+bilinear gather and its transpose as one-hot matmuls for the MXU
+(O(N*P*C) work); on Hopper each output element is at most 4 loads, and
+each gradient element at most 4 adds, so the kernels are bound by bytes.
 
-Two output layouts, one kernel template:
-  * fused (`unproject_features_fused`): channels-last
+Two output layouts, each with kernels of its own:
+  * fused (`unproject_features_fused`, `csrc/unproject.cu`): channels-last
     `[B, nx, ny, nz, V*C]`, the views concatenated on channels and relu'd,
     the JAX layout that the conv3d U-Net and the ident fusion read (as
     `[B, V*C, nx, ny, nz]` in torch.channels_last_3d memory format, a
-    permuted view, no copy);
-  * per view (`unproject_features`): `[B, V, nx, ny, nz, C]`, which the
-    add, mean and lstm3d fusions read.
+    permuted view, no copy); one thread per element of the output (or of
+    the gradient), channel fastest, device atomics in the backward;
+  * per view (`unproject_features`, `csrc/unproject_view.cu`):
+    `[B, V, nx, ny, nz, C]`, which the add, mean and lstm3d fusions read.
+    The forward moves 16-byte channel groups (the scalar variant where C
+    or a pointer does not allow them); the backward walks each lane's
+    voxels in order and adds running sums per tap only when the tap's
+    pixel changes (the direct scatter where C or g does not allow groups
+    of 4 channels). The variant is a pure function of shape and alignment
+    (`view_fwd_plan`, `view_bwd_plan`), chosen before the launch.
 
 Both gathers are differentiable in `feats` (torch.autograd.Functions, as
 `jax.custom_vjp` is in the JAX package); the coordinates carry no
@@ -28,6 +33,10 @@ CPU tensor only; for a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import collections
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..ops import projection as plain
@@ -35,11 +44,18 @@ from .build import check_launch, library
 
 # Launches of the CUDA kernels in this process (plain CPU calls not
 # counted): the fused layout's forward and backward, and the per-view
-# layout's.
+# layout's; the per-view launches also by variant ("fwd_vector",
+# "fwd_scalar", "bwd_walk", "bwd_direct").
 launches = 0
 bwd_launches = 0
 view_launches = 0
 view_bwd_launches = 0
+view_variants = collections.Counter()
+
+THREADS = 256               # threads a per-view block has (kThreads)
+WALK_VEC = 4                # channels a backward walk thread owns
+WALK_BLOCKS_PER_SM = 2      # blocks a SM of the backward walk's grid
+MAX_GROUPS = 32             # channel groups of a backward slice
 
 
 def _check_device(t, what):
@@ -144,6 +160,77 @@ def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
     return _GatherFused.apply(feats, x, y, fh, fw, v, relu)
 
 
+class ViewFwdPlan(NamedTuple):
+    """Launch of the per-view forward: `vec` channels a thread (1 for the
+    scalar variant, else 16 bytes' worth), a block of `gx` threads over
+    each voxel's C / vec channel groups times `vy` voxels at a time, which
+    walks a tile of THREADS voxels."""
+    variant: str
+    vec: int
+    gx: int
+    vy: int
+
+
+class ViewBwdPlan(NamedTuple):
+    """Launch of the per-view backward. "walk": a block of (gx, lanes)
+    threads owns gx groups of WALK_VEC channels (one of `slices`) and
+    `chunk` voxels (one of `nchunks`) of one view row; each lane walks
+    chunk / lanes of the voxels. "direct": one thread per element of g
+    (the other fields 0)."""
+    variant: str
+    gx: int
+    lanes: int
+    slices: int
+    chunk: int
+    nchunks: int
+
+
+def _vec(dtype):
+    """Channels in 16 bytes of `dtype`."""
+    return 128 // torch.finfo(dtype).bits
+
+
+def view_fwd_plan(c, dtype, *pointers):
+    """The per-view forward's variant for C channels of `dtype` at the
+    given data pointers (features and output): 16-byte groups where C is
+    a whole number of them and every pointer is 16-byte aligned, else the
+    scalar variant."""
+    vec = _vec(dtype)
+    if c % vec or any(ptr % 16 for ptr in pointers):
+        variant, vec = "scalar", 1
+    else:
+        variant = "vector"
+    gx = max(1, min(c // vec, THREADS))
+    return ViewFwdPlan(variant, vec, gx, max(1, THREADS // gx))
+
+
+def view_bwd_plan(bv, c, n, dtype, g_pointer, sms=132):
+    """The per-view backward's launch for BV view rows, C channels of
+    `dtype` and N voxels, g at `g_pointer`, on a card with `sms` SMs: the
+    walk where C is a multiple of WALK_VEC and g is aligned to WALK_VEC
+    elements, else the direct scatter. A slice is up to MAX_GROUPS
+    groups; the voxels are cut into chunks for WALK_BLOCKS_PER_SM blocks
+    a SM (longer walks sum more taps before each atomic; fewer blocks
+    leave SMs idle)."""
+    es = torch.finfo(dtype).bits // 8
+    if c == 0 or c % WALK_VEC or g_pointer % (WALK_VEC * es):
+        return ViewBwdPlan("direct", 0, 0, 0, 0, 0)
+    groups = c // WALK_VEC
+    gx = min(groups, MAX_GROUPS)
+    slices = -(-groups // gx)
+    lanes = THREADS // gx
+    want = sms * WALK_BLOCKS_PER_SM // max(1, bv * slices)
+    nchunks = max(1, min(want, -(-n // lanes)))
+    chunk = max(1, -(-n // nchunks))
+    return ViewBwdPlan("walk", gx, lanes, slices, chunk,
+                       max(1, -(-n // chunk)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def gather(feats, x, y, fh, fw):
     """Forward only, per-view layout. feats [B*V, fh*fw, C]
     float32/bfloat16; x, y [B*V, N] float32. Returns [B*V, N, C] in
@@ -161,13 +248,16 @@ def gather(feats, x, y, fh, fw):
         raise ValueError("unproject kernel: feats must be contiguous")
     _check_coords(x, y, bv, n, feats.device)
     out = torch.empty((bv, n, c), dtype=feats.dtype, device=feats.device)
+    plan = view_fwd_plan(c, feats.dtype, feats.data_ptr(), out.data_ptr())
     with torch.cuda.device(feats.device):
         err = library().mvod_unproject(
             feats.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            bv, fh, fw, c, n, int(feats.dtype == torch.bfloat16),
+            bv, fh, fw, c, n, plan.vec, plan.gx, plan.vy,
+            int(feats.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_unproject")
     view_launches += 1
+    view_variants["fwd_" + plan.variant] += 1
     return out
 
 
@@ -186,14 +276,17 @@ def gather_bwd(g, x, y, fh, fw):
     acc = torch.empty((bv, fh * fw, c), dtype=torch.float32, device=g.device)
     dfeats = acc if g.dtype == torch.float32 else torch.empty_like(
         acc, dtype=g.dtype)
+    plan = view_bwd_plan(bv, c, n, g.dtype, g.data_ptr(),
+                         _sm_count(g.device.index))
     with torch.cuda.device(g.device):
         err = library().mvod_unproject_bwd(
             g.data_ptr(), x.data_ptr(), y.data_ptr(), acc.data_ptr(),
-            dfeats.data_ptr(), bv, fh, fw, c, n,
-            int(g.dtype == torch.bfloat16),
+            dfeats.data_ptr(), bv, fh, fw, c, n, plan.gx, plan.lanes,
+            plan.chunk, int(g.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_unproject_bwd")
     view_bwd_launches += 1
+    view_variants["bwd_" + plan.variant] += 1
     return dfeats
 
 

@@ -122,10 +122,11 @@ def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
 
 def _bilinear_taps(x, y, fh, fw):
     """The four taps of every coordinate, in the kernels' order: a list of
-    (flat index [BV, N] int64, weight [BV, N] float32), an out-of-bounds
-    tap with weight 0 and index 0. Taps are tested one by one, the floor
-    is a floor (x in (-1, 0) keeps tap x0 + 1), and at fw == 1 the x0+1
-    and y0+1 taps stay separate."""
+    (flat index [BV, N] int64, weight [BV, N] float32, valid [BV, N]
+    bool), the index 0 where the tap is out of bounds and the weight not
+    masked. Taps are tested one by one, the floor is a floor (x in
+    (-1, 0) keeps tap x0 + 1), and at fw == 1 the x0+1 and y0+1 taps stay
+    separate."""
     x0f = torch.floor(x)
     y0f = torch.floor(y)
     lx = x - x0f
@@ -138,35 +139,60 @@ def _bilinear_taps(x, y, fh, fw):
         valid = (yi >= 0) & (yi < fh) & (xi >= 0) & (xi < fw)
         idx = (torch.where(valid, yi, 0.0).long() * fw
                + torch.where(valid, xi, 0.0).long())
-        taps.append((idx, wgt * valid))
+        taps.append((idx, wgt, valid))
     return taps
 
 
 def _gather_taps(feats, x, y, fh, fw):
     """feats [BV, fh*fw, C]; x, y [BV, N]. The float32 sum
-    t00 + t01 + t10 + t11 [BV, N, C], each tap value * weight."""
+    t00 + t01 + t10 + t11 [BV, N, C], each tap value * (weight * valid)."""
     bv, _, c = feats.shape
     n = x.shape[1]
     f = feats.float()
     out = 0.0
-    for idx, w in _bilinear_taps(x, y, fh, fw):
+    for idx, w, valid in _bilinear_taps(x, y, fh, fw):
         vals = torch.gather(f, 1, idx[..., None].expand(bv, n, c))
-        out = out + vals * w[..., None]
+        out = out + vals * (w * valid)[..., None]
     return out
 
 
 def _scatter_taps(g, x, y, fh, fw):
-    """Transpose of `_gather_taps`: g [BV, N, C] float32 times each tap
-    weight added into the tap it was read from. Returns [BV, fh*fw, C]
+    """Transpose of `_gather_taps`: g [BV, N, C] float32 times each valid
+    tap's weight added into the tap it was read from; an invalid tap
+    (NaN coordinates included) adds nothing. Returns [BV, fh*fw, C]
     float32."""
     bv, n, c = g.shape
     p = fh * fw
     base = torch.arange(bv, device=g.device)[:, None] * p
     df = torch.zeros(bv * p, c, dtype=torch.float32, device=g.device)
-    for idx, w in _bilinear_taps(x, y, fh, fw):
+    for idx, w, valid in _bilinear_taps(x, y, fh, fw):
         df.index_add_(0, (base + idx).reshape(-1),
-                      (g * w[..., None]).reshape(-1, c))
+                      torch.where(valid[..., None], g * w[..., None], 0.0)
+                      .reshape(-1, c))
     return df.reshape(bv, p, c)
+
+
+def scatter_taps_blocked(g, x, y, fh, fw, cs, chunk, lanes=1):
+    """`_scatter_taps` in the decomposition of the per-view backward
+    kernel's walk (csrc/unproject_view.cu, kernels/unproject.py::
+    view_bwd_plan): each (view row, slice of `cs` channels, chunk of
+    `chunk` voxels) is split among `lanes` lanes, each of which walks
+    ceil(chunk / lanes) consecutive voxels; every lane sums its own
+    float32 partial of dfeats, and the partials are added into the
+    result. Used by the tests, to hold the kernel's blocking to the plain
+    scatter."""
+    bv, n, c = g.shape
+    df = torch.zeros(bv, fh * fw, c, dtype=torch.float32, device=g.device)
+    for c0 in range(0, c, cs):
+        for n0 in range(0, n, chunk):
+            n1 = min(n, n0 + chunk)
+            span = -(-(n1 - n0) // lanes)
+            for l0 in range(n0, n1, span):
+                l1 = min(n1, l0 + span)
+                df[:, :, c0:c0 + cs] += _scatter_taps(
+                    g[:, l0:l1, c0:c0 + cs], x[:, l0:l1], y[:, l0:l1], fh,
+                    fw)
+    return df
 
 
 def bilinear_gather(feats, x, y, fh, fw):

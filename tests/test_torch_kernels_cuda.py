@@ -7,9 +7,9 @@ jax nor the repo's conftest, so on a GPU host it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Tolerances: the unprojection kernels (fused and per-view layouts) use
-explicitly rounded float32 operations in the plain version's order, so
-float32 agrees bit for bit;
+Tolerances: the unprojection kernels (fused and per-view layouts, every
+variant of the per-view forward) use explicitly rounded float32
+operations in the plain version's order, so float32 agrees bit for bit;
 in bfloat16 both round the same float32 sum once, also exact. The
 reprojection copies values: exact. The backward kernels sum with float32
 atomics in no fixed order (so does the plain `index_add_` on the card):
@@ -164,49 +164,117 @@ def _edge_coords(g, bv, n, fh, fw):
     return x, y
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
-def test_unproject_view_kernel_matches_plain(dev, dtype, fh, fw):
-    """The per-view layout [B*V, N, C] (mvod_unproject) against the plain
-    bilinear_gather: equal bit for bit."""
-    g = torch.Generator().manual_seed(fh * 100 + fw + 3)
-    bv, c, n = 8, 64, 3000
-    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype).to(dev)
+# The per-view kernels (csrc/unproject_view.cu): (fh, fw, C, N, bv,
+# element offset of feats and g from their allocations, forward variant
+# and backward variant by dtype (float32, bfloat16)). C = 6 and 12 reach
+# the scalar forward where C is not a whole number of 16-byte groups, C = 6
+# the direct backward (C not a multiple of 4), the offset tensors both by
+# alignment, the
+# 10 x 10 map with 64,000 voxels the heavy contention of P6, the 256^2
+# map a map of 65,536 pixels.
+VIEW_CASES = {
+    "8x1": (8, 1, 64, 3000, 8, 0, ("vector",) * 2, ("walk",) * 2),
+    "1x1": (1, 1, 64, 3000, 8, 0, ("vector",) * 2, ("walk",) * 2),
+    "8x2": (8, 2, 64, 3000, 8, 0, ("vector",) * 2, ("walk",) * 2),
+    "40x40": (40, 40, 64, 3000, 8, 0, ("vector",) * 2, ("walk",) * 2),
+    "c6": (8, 8, 6, 3000, 4, 0, ("scalar",) * 2, ("direct",) * 2),
+    "c12": (8, 8, 12, 3000, 4, 0, ("vector", "scalar"), ("walk",) * 2),
+    "offset": (40, 40, 64, 3000, 4, 1, ("scalar",) * 2, ("direct",) * 2),
+    "p6_contention": (10, 10, 64, 64000, 4, 0, ("vector",) * 2,
+                      ("walk",) * 2),
+    "256x256": (256, 256, 64, 3000, 4, 0, ("vector",) * 2, ("walk",) * 2),
+}
+
+
+def _offset(t, offset, dev):
+    """t on dev, `offset` elements past the start of its allocation."""
+    base = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    out = base[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _view_case(name, dtype, dev, seed):
+    fh, fw, c, n, bv, offset = VIEW_CASES[name][:6]
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype)
     x, y = (t.to(dev) for t in _edge_coords(g, bv, n, fh, fw))
+    gout = torch.randn(bv, n, c, generator=g).to(dtype)
+    return _offset(feats, offset, dev), x, y, _offset(gout, offset, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(VIEW_CASES))
+def test_unproject_view_kernel_matches_plain(dev, dtype, case):
+    """The per-view layout [B*V, N, C] (mvod_unproject) against the plain
+    bilinear_gather, in the variant the shape and alignment select: equal
+    bit for bit."""
+    fh, fw, c, n, bv = VIEW_CASES[case][:5]
+    variant = VIEW_CASES[case][6][dtype == torch.bfloat16]
+    feats, x, y, _ = _view_case(case, dtype, dev, fh * 100 + fw + c + 3)
     ref = P.bilinear_gather(feats, x, y, fh, fw)
     before, fused = unproject.view_launches, unproject.launches
+    used = unproject.view_variants["fwd_" + variant]
     got = unproject.bilinear_gather(feats, x, y, fh, fw)
     torch.cuda.synchronize()
     assert unproject.view_launches == before + 1
+    assert unproject.view_variants["fwd_" + variant] == used + 1
     assert unproject.launches == fused
     assert got.dtype == dtype and got.shape == (bv, n, c)
     assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fh,fw", [(8, 1), (1, 1), (8, 2), (40, 40)])
-def test_unproject_view_bwd_kernel_matches_plain(dev, dtype, fh, fw):
-    """Gradient of the per-view gather through its autograd Function
-    (mvod_unproject_bwd) against the plain index_add_ scatter."""
-    g = torch.Generator().manual_seed(fh * 100 + fw + 5)
-    bv, c, n = 8, 64, 3000
-    feats = torch.randn(bv, fh * fw, c, generator=g).to(dtype).to(dev)
-    x, y = (t.to(dev) for t in _edge_coords(g, bv, n, fh, fw))
-    gout = torch.randn(bv, n, c, generator=g).to(dtype).to(dev)
+@pytest.mark.parametrize("case", list(VIEW_CASES))
+def test_unproject_view_bwd_kernel_matches_plain(dev, dtype, case):
+    """Gradient of the per-view gather (mvod_unproject_bwd) against the
+    plain index_add_ scatter: through its autograd Function, and called
+    on g itself, in the variant g's width and alignment select."""
+    fh, fw, c, n, bv = VIEW_CASES[case][:5]
+    variant = VIEW_CASES[case][7][dtype == torch.bfloat16]
+    feats, x, y, gout = _view_case(case, dtype, dev, fh * 100 + fw + c + 5)
     leaf = feats.clone().requires_grad_()
     out = unproject.bilinear_gather(leaf, x, y, fh, fw)
     before = unproject.view_bwd_launches
     out.backward(gout)
+    used = unproject.view_variants["bwd_" + variant]
+    direct = unproject.gather_bwd(gout, x, y, fh, fw)
     torch.cuda.synchronize()
-    assert unproject.view_bwd_launches == before + 1
+    assert unproject.view_bwd_launches == before + 2
+    assert unproject.view_variants["bwd_" + variant] == used + 1
     ref = P.bilinear_gather_bwd(gout, x, y, fh, fw, dtype)
-    got = leaf.grad
-    assert got.dtype == dtype and got.shape == ref.shape
-    err = (got.float() - ref.float()).abs()
     tol = 1e-5 * float(ref.float().abs().max())
     if dtype == torch.bfloat16:
         tol = tol + 2.0 ** -7 * ref.float().abs()
-    assert bool((err <= tol).all()), float(err.max())
+    for got in (leaf.grad, direct):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= tol).all()), float(err.max())
+
+
+def test_unproject_view_bwd_ignores_invalid_taps(dev):
+    """NaN and infinite coordinates, and out-of-bounds voxels whose g is
+    not finite, add nothing (both variants): the gradient equals that of
+    the same call without those voxels."""
+    g = torch.Generator().manual_seed(17)
+    for c, variant in ((8, "walk"), (6, "direct")):
+        bv, fh, n = 2, 10, 600
+        x, y = _edge_coords(g, bv, n, fh, fh)
+        gout = torch.randn(bv, n, c, generator=g)
+        x[:, 300], y[:, 301] = float("nan"), float("nan")
+        x[:, 302], y[:, 303] = float("inf"), -float("inf")
+        x[:, 304:306], gout[:, 304:306] = -5.0, float("inf")
+        keep = [j for j in range(n) if j not in range(300, 306)]
+        args = [t.to(dev) for t in (gout, x, y)]
+        cut = [t[:, keep].contiguous() for t in args]
+        used = unproject.view_variants["bwd_" + variant]
+        got = unproject.gather_bwd(*args, fh, fh)
+        torch.cuda.synchronize()
+        assert unproject.view_variants["bwd_" + variant] == used + 1
+        want = P.bilinear_gather_bwd(*cut, fh, fh, torch.float32)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
 
 
 def test_kernel_wrappers_reject_bad_inputs(dev):
