@@ -10,10 +10,10 @@ Phases, one line each (any failure exits non-zero):
                per-view layout and reprojection, forward and backward)
                against its plain torch version at the flagship shapes
                (B=1, C=64, 40^3 grid, 20 depth samples; P4/P5/P6 =
-               40^2/20^2/10^2; V=2 for the fused unprojection, V=4 for
-               the per-view one), float32 with TF32 off and bfloat16: max
-               abs error vs the stated tolerance; the
-               device time per call (CUDA events around 20 calls queued
+               40^2/20^2/10^2; V=2 for the fused unprojection, and V=4
+               at P4 too, V=4 for the per-view one), float32 with TF32
+               off and bfloat16: max abs error vs the stated tolerance;
+               the device time per call (CUDA events around 20 calls queued
                behind a spinning kernel) of the kernel, of the plain
                version and of F.grid_sample (the library call that
                computes the same gather, or its backward: timed only,
@@ -23,27 +23,32 @@ Phases, one line each (any failure exits non-zero):
                the achieved GB/s and the share of the bound (or, where a
                kernel runs under its HBM bound because the repeated calls
                are served from the 50 MB L2, l2_served=True and no
-               share). The per-view lines also name the variant launched
-               and the largest and mean number of valid taps that land on
-               one pixel of a view (the adds a direct scatter makes to one
-               address per channel). Then one level of each other
-               per-view variant against plain: the scalar forward and
-               the direct backward (P4 features and g offset by one
-               element, so not 16-byte aligned).
+               share). The unprojection lines also name the variant
+               launched (the flagship tensors must launch the vector
+               forward and the walk backward) and the largest and mean
+               number of valid taps that land on one pixel of a view (the
+               adds a direct scatter makes to one address per channel).
+               Then one level of each other variant of both layouts
+               against plain: the scalar forward and the direct backward
+               (P4 features and g offset by one element, so not 16-byte
+               aligned).
   4. main    — inference: the engine (compat.MaskRCNN.detect) at the
                flagship config (2 views at 640^2, ResNet-50 with a 5-block
                stage 4, pyramid 64, conv3d, 40^3 grid, 20 samples,
                bfloat16) with seeded random weights, on 3 requests after one
-               warm-up; forward launches must be 3 levels x 3 calls and no
-               backward kernel runs. Then the same requests once more,
-               timed part by part on the host clock.
+               warm-up; forward launches must be 3 levels x 3 calls (the
+               unprojection's in its vector variant) and no backward
+               kernel runs. Then the same requests once more, timed part
+               by part on the host clock.
   5. train   — training: compat.MaskRCNN("training").train on a 640^2
                2-view synthetic dataset at the flagship training config
                (bench_train.py's: POST_NMS_ROIS_TRAINING 500,
                TRAIN_ROIS_PER_IMAGE 200, MAX_GT_INSTANCES 100, stage "all",
                frozen BatchNorm), 1 epoch of 3 steps (every kernel launched
-               exactly 3 levels x 3 steps), then a new engine resumes from
-               the checkpoint to epoch 2 with validation. Losses finite,
+               exactly 3 levels x 3 steps; the unprojection's forward in
+               its vector variant, its backward in the walk), then a new
+               engine resumes from the checkpoint to epoch 2 with
+               validation. Losses finite,
                parameters float32. Then the step time after warm-up (host
                clock) and one profiled step's device time.
   6. parity  — inference in float32, TF32 off: detections of the CPU run
@@ -121,10 +126,11 @@ FP32_FLOPS = 67e12                 # outside the tensor cores (the kernels'
                                    # arithmetic is float32 in any dtype)
 BF16_STEP = 2.0 ** -7           # a bf16 step: at most 2^-7 of the value
 # Forward: unprojection plain and kernel round the same float32 ops in the
-# same order (explicitly rounded in the kernel); bfloat16 rounds the same
-# float32 sum once. Reprojection copies values: exact. Absolute tolerances.
-TOL = {("unproject", torch.float32): 1e-5,
-       ("unproject", torch.bfloat16): 2.0 ** -6,
+# same order (explicitly rounded in the kernel), then the same ReLU;
+# bfloat16 rounds the same float32 sum once: exact in both layouts.
+# Reprojection copies values: exact. Absolute tolerances.
+TOL = {("unproject", torch.float32): 0.0,
+       ("unproject", torch.bfloat16): 0.0,
        ("unproject_view", torch.float32): 0.0,
        ("unproject_view", torch.bfloat16): 0.0,
        ("reproject", torch.float32): 0.0,
@@ -170,8 +176,8 @@ GRAD_FLIP_SHARE = 0.05
 _CSRC = "mulit_view_object_detection_torch/csrc/"
 SOURCES = {"unproject": _CSRC + "unproject.cu",
            "unproject_bwd": _CSRC + "unproject.cu",
-           "unproject_view": _CSRC + "unproject_view.cu",
-           "unproject_view_bwd": _CSRC + "unproject_view.cu",
+           "unproject_view": _CSRC + "unproject.cu",
+           "unproject_view_bwd": _CSRC + "unproject.cu",
            "reproject": _CSRC + "reproject.cu",
            "reproject_bwd": _CSRC + "reproject.cu"}
 KERNELS = ("unproject", "unproject_bwd", "unproject_view",
@@ -487,12 +493,22 @@ def adds_per_pixel(x, y, s):
     return int(counts.max()), float(counts.mean())
 
 
-def launched_variant(fn):
-    """fn's result and the per-view variant it launched."""
-    before = dict(unproject.view_variants)
+def variants_of(name):
+    """The launch counter by variant of kernel `name`'s layout (None for
+    the reprojection)."""
+    if name.startswith("unproject_view"):
+        return unproject.view_variants
+    return unproject.fused_variants if name.startswith("unproject") else None
+
+
+def launched_variant(name, fn):
+    """fn's result and the variant of kernel `name` that it launched."""
+    counter = variants_of(name)
+    if counter is None:
+        return fn(), None
+    before = dict(counter)
     out = fn()
-    grew = [k for k, n in unproject.view_variants.items()
-            if n > before.get(k, 0)]
+    grew = [k for k, n in counter.items() if n > before.get(k, 0)]
     return out, ",".join(grew) or None
 
 
@@ -576,35 +592,97 @@ def rate(nbytes, ms, b_ms):
     return out
 
 
-def view_variant_checks(rcam4, kmat, pts, gen):
-    """One level (P4: 4 views, 40^2, C=64, 40^3 voxels) of the per-view
-    variants that the flagship tensors do not reach, against plain: the
-    scalar forward and the direct backward, on features and g offset by
-    one element from their allocations (not 16-byte aligned)."""
-    bv, c, s = 4, 64, LEVELS["P4"]
-    x, y = plain.project_voxel_coords(rcam4, kmat, (640, 640), pts, s, s)
-    x, y = x.contiguous(), y.contiguous()
+def variant_checks(rcam, rcam4, kmat, pts, gen):
+    """One level (P4: 40^2, C=64, 40^3 voxels; 2 views in the fused layout,
+    4 in the per-view one) of the variants that the flagship tensors do
+    not reach, against plain: the scalar forward and the direct backward
+    of each layout, on features and g offset by one element from their
+    allocations (not 16-byte aligned)."""
+    c, s = 64, LEVELS["P4"]
     for dtype in (torch.float32, torch.bfloat16):
-        feats = torch.randn(bv * s * s * c + 1, generator=gen).to(
-            DEV, dtype)[1:].view(bv, s * s, c)
-        g = torch.randn(bv * x.shape[1] * c + 1, generator=gen).to(
-            DEV, dtype)[1:].view(bv, x.shape[1], c)
-        checks = (("unproject_view", "fwd_scalar",
-                   lambda: unproject.gather(feats, x, y, s, s),
-                   lambda: plain.bilinear_gather(feats, x, y, s, s)),
-                  ("unproject_view_bwd", "bwd_direct",
-                   lambda: unproject.gather_bwd(g, x, y, s, s),
-                   lambda: plain.bilinear_gather_bwd(g, x, y, s, s, dtype)))
-        for name, expect, kern, ref in checks:
-            got, variant = launched_variant(kern)
-            want = ref()
-            torch.cuda.synchronize()
-            err, tol = _check(name, got, want, dtype)
-            if variant != expect:
-                raise RuntimeError(f"{name} launched {variant}, not {expect}")
-            say("kernels", kernel=name, variant=variant, level="P4",
-                dtype=str(dtype).split(".")[1], max_abs_err=err, tol=tol,
-                ms=round(device_ms(kern), 5))
+        for name, r, v in (("unproject", rcam, 2),
+                           ("unproject_view", rcam4, 4)):
+            x, y = plain.project_voxel_coords(r, kmat, (640, 640), pts, s, s)
+            x, y = x.contiguous(), y.contiguous()
+            n = x.shape[1]
+            feats = torch.randn(v * s * s * c + 1, generator=gen).to(
+                DEV, dtype)[1:].view(v, s * s, c)
+            g = torch.randn(v * n * c + 1, generator=gen).to(
+                DEV, dtype)[1:]
+            if name == "unproject":
+                g = g.view(1, n, v * c)
+                saved = plain.bilinear_gather_fused(feats, x, y, s, s, v,
+                                                    True)
+                checks = (
+                    (name, "fwd_scalar",
+                     lambda: unproject.gather_fused(feats, x, y, s, s, v,
+                                                    True),
+                     lambda: plain.bilinear_gather_fused(feats, x, y, s, s,
+                                                         v, True)),
+                    (name + "_bwd", "bwd_direct",
+                     lambda: unproject.gather_fused_bwd(g, saved, x, y, s,
+                                                        s, v, True),
+                     lambda: plain.bilinear_gather_fused_bwd(
+                         g, saved, x, y, s, s, v, True, dtype)))
+            else:
+                g = g.view(v, n, c)
+                checks = (
+                    (name, "fwd_scalar",
+                     lambda: unproject.gather(feats, x, y, s, s),
+                     lambda: plain.bilinear_gather(feats, x, y, s, s)),
+                    (name + "_bwd", "bwd_direct",
+                     lambda: unproject.gather_bwd(g, x, y, s, s),
+                     lambda: plain.bilinear_gather_bwd(g, x, y, s, s,
+                                                       dtype)))
+            for kname, expect, kern, ref in checks:
+                got, variant = launched_variant(kname, kern)
+                want = ref()
+                torch.cuda.synchronize()
+                err, tol = _check(kname, got, want, dtype)
+                if variant != expect:
+                    raise RuntimeError(f"{kname} launched {variant}, not "
+                                       f"{expect}")
+                say("kernels", kernel=kname, variant=variant, level="P4",
+                    views=v, dtype=str(dtype).split(".")[1],
+                    max_abs_err=err, tol=tol, ms=round(device_ms(kern), 5))
+
+
+def measure(name, case, level, dtype, views, adds, outside):
+    """Kernel `name` at one level against its plain version (the
+    tolerance, the variant launched), then the device times of the
+    kernel, the plain version and the library call, the host-clock call
+    times and the bound; prints one line and returns its numbers."""
+    kern, ref, lib, nbytes, flops = case
+    got, variant = launched_variant(name, kern)
+    want = ref()
+    torch.cuda.synchronize()
+    err, tol = _check(name, got, want, dtype)
+    # the flagship tensors take the vector forward and the walk backward
+    want_variant = "bwd_walk" if name.endswith("_bwd") else "fwd_vector"
+    if variant is not None and variant != want_variant:
+        raise RuntimeError(f"{name} launched {variant}, not {want_variant}")
+    # runs of the same kernel on the same inputs: the spread that float
+    # atomics leave in a backward's last bits
+    spread = (max(float((kern().float() - got.float()).abs().max())
+                  for _ in range(3)) if name.endswith("_bwd") else 0.0)
+    ms, plain_ms, lib_ms = device_ms(kern), device_ms(ref), device_ms(lib)
+    call_ms, plain_call_ms = median_ms(kern), median_ms(ref)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    extra = {}
+    if variant is not None:
+        extra = dict(variant=variant, adds_per_pixel_max=adds[0],
+                     adds_per_pixel_mean=round(adds[1], 2))
+    say("kernels", kernel=name, level=level, views=views,
+        dtype=str(dtype).split(".")[1], shape=list(got.shape),
+        max_abs_err=err, tol=tol, run_to_run=spread,
+        ms=round(ms, 5), plain_ms=round(plain_ms, 5),
+        library_ms=round(lib_ms, 5), bound_ms=round(b_ms, 5),
+        bound_by=b_by, mbytes=round(nbytes / 1e6, 3),
+        **rate(nbytes, ms, b_ms), **extra,
+        call_ms=round(call_ms, 4), plain_call_ms=round(plain_call_ms, 4),
+        view2_voxels_outside=round(outside, 3))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def phase_kernels():
@@ -621,6 +699,21 @@ def phase_kernels():
     nx = ny = cfg.nvox
     nz = cfg.nvox_z
     record = {}
+
+    def keep(name, level, dtype, got):
+        """The JSON record: the largest error over every run; P4 bf16 at
+        the flagship's views (V=2 fused) as the kernel's numbers, and
+        every bf16 level's times beside them."""
+        rec = record.setdefault(name, {"max_abs_err": 0.0,
+                                       "bf16_by_level": {}})
+        rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+        if dtype == torch.bfloat16:
+            rec["bf16_by_level"][level] = {
+                k: got[k] for k in ("ms", "bound_ms", "library_ms")}
+            if level == "P4":
+                rec.update({k: got[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")})
+
     for dtype in (torch.float32, torch.bfloat16):
         for level, s in LEVELS.items():
             feats = torch.randn(b * v, s * s, c, generator=g).to(DEV, dtype)
@@ -632,55 +725,29 @@ def phase_kernels():
             feats4 = torch.randn(b * 4, s * s, c, generator=g).to(DEV, dtype)
             x4, y4 = plain.project_voxel_coords(rcam4, kmat, (640, 640), pts,
                                                 s, s)
+            x4, y4 = x4.contiguous(), y4.contiguous()
             grid = torch.randn(b, nx, ny, nz, c, generator=g).to(DEV, dtype)
             xg, yg, iz = plain.reprojection_coords(kmat, (640, 640), s,
                                                    cfg.samples, cfg, nx, ny,
                                                    nz)
             xg, yg = xg.contiguous(), yg.contiguous()
-            cases = _unproject_cases(feats, x, y, s, v, dtype)
-            cases.update(_unproject_view_cases(
-                feats4, x4.contiguous(), y4.contiguous(), s, dtype))
-            cases.update(_reproject_cases(grid, xg, yg, iz, dtype))
-            adds = adds_per_pixel(x4, y4, s)
-            for name, (kern, ref, lib, nbytes, flops) in cases.items():
-                got, variant = launched_variant(kern)
-                want = ref()
-                torch.cuda.synchronize()
-                err, tol = _check(name, got, want, dtype)
-                # runs of the same kernel on the same inputs: the spread
-                # that float atomics leave in a backward's last bits
-                spread = (max(float((kern().float() - got.float()).abs()
-                                    .max()) for _ in range(3))
-                          if name.endswith("_bwd") else 0.0)
-                ms, plain_ms, lib_ms = (device_ms(kern), device_ms(ref),
-                                        device_ms(lib))
-                call_ms, plain_call_ms = median_ms(kern), median_ms(ref)
-                b_ms, b_by = bound_ms(nbytes, flops)
-                extra = {}
-                if name.startswith("unproject_view"):
-                    want_variant = ("bwd_walk" if name.endswith("_bwd")
-                                    else "fwd_vector")
-                    if variant != want_variant:
-                        raise RuntimeError(f"{name} launched {variant}, "
-                                           f"not {want_variant}")
-                    extra = dict(variant=variant, adds_per_pixel_max=adds[0],
-                                 adds_per_pixel_mean=round(adds[1], 2))
-                say("kernels", kernel=name, level=level,
-                    dtype=str(dtype).split(".")[1], shape=list(got.shape),
-                    max_abs_err=err, tol=tol, run_to_run=spread,
-                    ms=round(ms, 5), plain_ms=round(plain_ms, 5),
-                    library_ms=round(lib_ms, 5), bound_ms=round(b_ms, 5),
-                    bound_by=b_by, mbytes=round(nbytes / 1e6, 3),
-                    **rate(nbytes, ms, b_ms), **extra,
-                    call_ms=round(call_ms, 4),
-                    plain_call_ms=round(plain_call_ms, 4),
-                    view2_voxels_outside=round(outside, 3))
-                rec = record.setdefault(name, {"max_abs_err": 0.0})
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if level == "P4" and dtype == torch.bfloat16:
-                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=lib_ms)
-    view_variant_checks(rcam4, kmat, pts, g)
+            adds, adds4 = adds_per_pixel(x, y, s), adds_per_pixel(x4, y4, s)
+            # (kernel, case, views, taps a pixel, record label)
+            runs = [(name, case, v, adds, level) for name, case in
+                    _unproject_cases(feats, x, y, s, v, dtype).items()]
+            runs += [(name, case, 4, adds4, level) for name, case in
+                     _unproject_view_cases(feats4, x4, y4, s, dtype).items()]
+            runs += [(name, case, 1, adds, level) for name, case in
+                     _reproject_cases(grid, xg, yg, iz, dtype).items()]
+            if level == "P4":
+                # the fused kernels at the 4-view conv3d's width too
+                runs += [(name, case, 4, adds4, "P4_v4") for name, case in
+                         _unproject_cases(feats4, x4, y4, s, 4,
+                                          dtype).items()]
+            for name, case, views, a, label in runs:
+                keep(name, label, dtype,
+                     measure(name, case, level, dtype, views, a, outside))
+    variant_checks(rcam, rcam4, kmat, pts, g)
     return record
 
 
@@ -700,6 +767,7 @@ def reset_counts():
     unproject.launches = unproject.bwd_launches = 0
     unproject.view_launches = unproject.view_bwd_launches = 0
     unproject.view_variants.clear()
+    unproject.fused_variants.clear()
     reproject.launches = reproject.bwd_launches = 0
 
 
@@ -710,6 +778,23 @@ def read_counts():
             "unproject_view_bwd": unproject.view_bwd_launches,
             "reproject": reproject.launches,
             "reproject_bwd": reproject.bwd_launches}
+
+
+def check_variants(tag, counts):
+    """The unprojection variants launched since the counts were reset:
+    on the main paths every launch must be the vector forward or the walk
+    backward. Returns them, by layout and variant."""
+    got = {f"fused_{k}": n for k, n in unproject.fused_variants.items() if n}
+    got.update({f"view_{k}": n for k, n in unproject.view_variants.items()
+                if n})
+    want = {k: n for k, n in (
+        ("fused_fwd_vector", counts["unproject"]),
+        ("fused_bwd_walk", counts["unproject_bwd"]),
+        ("view_fwd_vector", counts["unproject_view"]),
+        ("view_bwd_walk", counts["unproject_view_bwd"])) if n}
+    if got != want:
+        raise RuntimeError(f"{tag} launched the variants {got}, not {want}")
+    return got
 
 
 def expected(**counts):
@@ -760,6 +845,7 @@ def run_requests(tag, cfg, per_request):
     launches = read_counts()
     expect = expected(**{k: n * len(lat) for k, n in per_request.items()})
     say(tag, calls=len(lat), launches=launches, expected=expect,
+        variants=check_variants(tag, launches),
         latency_ms_median=round(statistics.median(lat), 3))
     if launches != expect:
         raise RuntimeError(f"{tag} kernel launches {launches} != {expect}")
@@ -861,7 +947,8 @@ def phase_train():
         expect = expected(unproject=n, unproject_bwd=n, reproject=n,
                           reproject_bwd=n)
         say("train", epoch=1, steps=cfg.STEPS_PER_EPOCH, launches=launches,
-            expected=expect, seconds=round(epoch_s, 3),
+            expected=expect, variants=check_variants("train", launches),
+            seconds=round(epoch_s, 3),
             losses=json.dumps(losses[1], separators=(",", ":")))
         if launches != expect:
             raise RuntimeError(f"train launches {launches} != {expect}")
@@ -883,7 +970,7 @@ def phase_train():
         torch.cuda.synchronize()
         resumed = read_counts()
         say("train", epoch=2, resumed_from=ckpt.split(model_dir)[-1],
-            launches=resumed,
+            launches=resumed, variants=check_variants("train", resumed),
             losses=json.dumps(losses[2], separators=(",", ":")))
         want = expected(unproject=3 * (cfg.STEPS_PER_EPOCH + 1),
                         reproject=3 * (cfg.STEPS_PER_EPOCH + 1),
@@ -916,7 +1003,8 @@ def run_training(tag, cfg, per_step):
         expect = expected(**{k: n * cfg.STEPS_PER_EPOCH
                              for k, n in per_step.items()})
         say(tag, epoch=1, steps=cfg.STEPS_PER_EPOCH, launches=launches,
-            expected=expect, seconds=round(epoch_s, 3),
+            expected=expect, variants=check_variants(tag, launches),
+            seconds=round(epoch_s, 3),
             losses=json.dumps(losses[1], separators=(",", ":")))
         if launches != expect:
             raise RuntimeError(f"{tag} launches {launches} != {expect}")

@@ -28,23 +28,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # feats, x, y, out, b, v, fh, fw, c, n, relu, is_bf16, stream
-    "mvod_unproject_fused": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    # csrc/unproject.cu: feats, x, y, out, b, v, fh, fw, c, n, relu, vec,
+    # gx, vy, is_bf16, stream
+    "mvod_unproject_fused": [_P] * 4 + [_I] * 11 + [_P],
     # grid, xg, yg, iz (host), out, b, nx, ny, nz, c, s_d, npix, is_bf16,
     # stream
     "mvod_reproject_nearest": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    # g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, is_bf16,
-    # stream
-    "mvod_unproject_fused_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, gx, lanes,
+    # chunk, is_bf16, stream
+    "mvod_unproject_fused_bwd": [_P] * 6 + [_I] * 11 + [_P],
     # g, xg, yg, iz (host), acc, dgrid, b, nx, ny, nz, c, s_d, npix,
     # is_bf16, stream
     "mvod_reproject_nearest_bwd": [_P] * 6 + [_I] * 8 + [_P],
-    # csrc/unproject_view.cu: feats, x, y, out, bv, fh, fw, c, n, vec, gx,
-    # vy, is_bf16, stream
-    "mvod_unproject": [_P] * 4 + [_I] * 9 + [_P],
-    # g, x, y, acc, dfeats, bv, fh, fw, c, n, gx, lanes, chunk, is_bf16,
-    # stream
-    "mvod_unproject_bwd": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

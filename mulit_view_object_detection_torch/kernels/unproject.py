@@ -9,21 +9,22 @@ bilinear gather and its transpose as one-hot matmuls for the MXU
 (O(N*P*C) work); on Hopper each output element is at most 4 loads, and
 each gradient element at most 4 adds, so the kernels are bound by bytes.
 
-Two output layouts, each with kernels of its own:
-  * fused (`unproject_features_fused`, `csrc/unproject.cu`): channels-last
+Two output layouts, one set of kernels (`csrc/unproject.cu`): the
+per-view layout is the fused one with B*V batch elements of one view each
+and no ReLU.
+  * fused (`unproject_features_fused`): channels-last
     `[B, nx, ny, nz, V*C]`, the views concatenated on channels and relu'd,
     the JAX layout that the conv3d U-Net and the ident fusion read (as
     `[B, V*C, nx, ny, nz]` in torch.channels_last_3d memory format, a
-    permuted view, no copy); one thread per element of the output (or of
-    the gradient), channel fastest, device atomics in the backward;
-  * per view (`unproject_features`, `csrc/unproject_view.cu`):
-    `[B, V, nx, ny, nz, C]`, which the add, mean and lstm3d fusions read.
-    The forward moves 16-byte channel groups (the scalar variant where C
-    or a pointer does not allow them); the backward walks each lane's
-    voxels in order and adds running sums per tap only when the tap's
-    pixel changes (the direct scatter where C or g does not allow groups
-    of 4 channels). The variant is a pure function of shape and alignment
-    (`view_fwd_plan`, `view_bwd_plan`), chosen before the launch.
+    permuted view, no copy);
+  * per view (`unproject_features`): `[B, V, nx, ny, nz, C]`, which the
+    add, mean and lstm3d fusions read.
+The forward moves 16-byte channel groups (the scalar variant where C or a
+pointer does not allow them); the backward walks each lane's voxels and
+adds running sums per tap only when the tap's pixel changes (the direct
+scatter where C, g or the saved output does not allow groups of 4
+channels). The variant is a pure function of shape and alignment
+(`fwd_plan`, `bwd_plan`), chosen before the launch.
 
 Both gathers are differentiable in `feats` (torch.autograd.Functions, as
 `jax.custom_vjp` is in the JAX package); the coordinates carry no
@@ -44,15 +45,16 @@ from .build import check_launch, library
 
 # Launches of the CUDA kernels in this process (plain CPU calls not
 # counted): the fused layout's forward and backward, and the per-view
-# layout's; the per-view launches also by variant ("fwd_vector",
-# "fwd_scalar", "bwd_walk", "bwd_direct").
+# layout's; each layout's also by variant ("fwd_vector", "fwd_scalar",
+# "bwd_walk", "bwd_direct").
 launches = 0
 bwd_launches = 0
+fused_variants = collections.Counter()
 view_launches = 0
 view_bwd_launches = 0
 view_variants = collections.Counter()
 
-THREADS = 256               # threads a per-view block has (kThreads)
+THREADS = 256               # threads a block has (kThreads)
 WALK_VEC = 4                # channels a backward walk thread owns
 WALK_BLOCKS_PER_SM = 2      # blocks a SM of the backward walk's grid
 MAX_GROUPS = 32             # channel groups of a backward slice
@@ -73,14 +75,9 @@ def _check_coords(x, y, bv, n, device):
                              f"float32 [{bv}, {n}] on {device}")
 
 
-def gather_fused(feats, x, y, fh, fw, v, relu=True):
-    """Forward only. feats [B*V, fh*fw, C] float32/bfloat16; x, y
-    [B*V, N] float32. Returns [B, N, V*C] in feats' dtype (see
-    ops/projection.py::bilinear_gather_fused)."""
-    global launches
-    _check_device(feats, "feats")
-    if feats.device.type == "cpu":
-        return plain.bilinear_gather_fused(feats, x, y, fh, fw, v, relu)
+def _forward(feats, x, y, fh, fw, v, relu):
+    """Launch mvod_unproject_fused: feats [B*V, fh*fw, C] on the card;
+    returns (out [B, N, V*C], the launch plan)."""
     bv, p, c = feats.shape
     n = x.shape[1]
     if p != fh * fw or bv % v:
@@ -91,27 +88,21 @@ def gather_fused(feats, x, y, fh, fw, v, relu=True):
     _check_coords(x, y, bv, n, feats.device)
     out = torch.empty((bv // v, n, v * c), dtype=feats.dtype,
                       device=feats.device)
+    plan = fwd_plan(c, feats.dtype, feats.data_ptr(), out.data_ptr())
     with torch.cuda.device(feats.device):
         err = library().mvod_unproject_fused(
             feats.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            bv // v, v, fh, fw, c, n, int(relu),
+            bv // v, v, fh, fw, c, n, int(relu), plan.vec, plan.gx, plan.vy,
             int(feats.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_unproject_fused")
-    launches += 1
-    return out
+    return out, plan
 
 
-def gather_fused_bwd(g, saved, x, y, fh, fw, v, relu=True):
-    """Gradient of `gather_fused` with respect to feats. g and saved (its
-    output, read when relu) [B, N, V*C]; x, y [B*V, N] float32. Returns
-    dfeats [B*V, fh*fw, C] in g's dtype, summed in float32 (atomics on
-    the card, so the last bits vary from run to run)."""
-    global bwd_launches
-    _check_device(g, "g")
-    if g.device.type == "cpu":
-        return plain.bilinear_gather_fused_bwd(g, saved, x, y, fh, fw, v,
-                                               relu, g.dtype)
+def _backward(g, saved, x, y, fh, fw, v, relu):
+    """Launch mvod_unproject_fused_bwd: g (and, with relu, saved)
+    [B, N, V*C] on the card; returns (dfeats [B*V, fh*fw, C], the launch
+    plan)."""
     b, n, vc = g.shape
     if vc % v:
         raise ValueError(f"unproject bwd: g {tuple(g.shape)} vs v={v}")
@@ -127,14 +118,47 @@ def gather_fused_bwd(g, saved, x, y, fh, fw, v, relu=True):
                       device=g.device)
     dfeats = acc if g.dtype == torch.float32 else torch.empty_like(
         acc, dtype=g.dtype)
+    pointers = (g.data_ptr(),) + ((saved.data_ptr(),) if relu else ())
+    plan = bwd_plan(b * v, c, n, g.dtype, *pointers,
+                    sms=_sm_count(g.device.index))
     with torch.cuda.device(g.device):
         err = library().mvod_unproject_fused_bwd(
             g.data_ptr(), saved.data_ptr() if relu else None,
             x.data_ptr(), y.data_ptr(), acc.data_ptr(), dfeats.data_ptr(),
-            b, v, fh, fw, c, n, int(relu), int(g.dtype == torch.bfloat16),
+            b, v, fh, fw, c, n, int(relu), plan.gx, plan.lanes, plan.chunk,
+            int(g.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_unproject_fused_bwd")
+    return dfeats, plan
+
+
+def gather_fused(feats, x, y, fh, fw, v, relu=True):
+    """Forward only. feats [B*V, fh*fw, C] float32/bfloat16; x, y
+    [B*V, N] float32. Returns [B, N, V*C] in feats' dtype (see
+    ops/projection.py::bilinear_gather_fused)."""
+    global launches
+    _check_device(feats, "feats")
+    if feats.device.type == "cpu":
+        return plain.bilinear_gather_fused(feats, x, y, fh, fw, v, relu)
+    out, plan = _forward(feats, x, y, fh, fw, v, relu)
+    launches += 1
+    fused_variants["fwd_" + plan.variant] += 1
+    return out
+
+
+def gather_fused_bwd(g, saved, x, y, fh, fw, v, relu=True):
+    """Gradient of `gather_fused` with respect to feats. g and saved (its
+    output, read when relu) [B, N, V*C]; x, y [B*V, N] float32. Returns
+    dfeats [B*V, fh*fw, C] in g's dtype, summed in float32 (atomics on
+    the card, so the last bits vary from run to run)."""
+    global bwd_launches
+    _check_device(g, "g")
+    if g.device.type == "cpu":
+        return plain.bilinear_gather_fused_bwd(g, saved, x, y, fh, fw, v,
+                                               relu, g.dtype)
+    dfeats, plan = _backward(g, saved, x, y, fh, fw, v, relu)
     bwd_launches += 1
+    fused_variants["bwd_" + plan.variant] += 1
     return dfeats
 
 
@@ -160,23 +184,23 @@ def bilinear_gather_fused(feats, x, y, fh, fw, v, relu=True):
     return _GatherFused.apply(feats, x, y, fh, fw, v, relu)
 
 
-class ViewFwdPlan(NamedTuple):
-    """Launch of the per-view forward: `vec` channels a thread (1 for the
-    scalar variant, else 16 bytes' worth), a block of `gx` threads over
-    each voxel's C / vec channel groups times `vy` voxels at a time, which
-    walks a tile of THREADS voxels."""
+class FwdPlan(NamedTuple):
+    """Launch of the forward (either layout): `vec` channels a thread (1
+    for the scalar variant, else 16 bytes' worth), a block of `gx` threads
+    over each view's C / vec channel groups times `vy` voxels at a time,
+    which walks a tile of THREADS voxels of one view."""
     variant: str
     vec: int
     gx: int
     vy: int
 
 
-class ViewBwdPlan(NamedTuple):
-    """Launch of the per-view backward. "walk": a block of (gx, lanes)
-    threads owns gx groups of WALK_VEC channels (one of `slices`) and
-    `chunk` voxels (one of `nchunks`) of one view row; each lane walks
-    chunk / lanes of the voxels. "direct": one thread per element of g
-    (the other fields 0)."""
+class BwdPlan(NamedTuple):
+    """Launch of the backward (either layout). "walk": a block of
+    (gx, lanes) threads owns gx groups of WALK_VEC channels (one of
+    `slices`) and `chunk` voxels (one of `nchunks`) of one view row; each
+    lane walks chunk / lanes of the voxels. "direct": one thread per
+    element of g (the other fields 0)."""
     variant: str
     gx: int
     lanes: int
@@ -190,31 +214,34 @@ def _vec(dtype):
     return 128 // torch.finfo(dtype).bits
 
 
-def view_fwd_plan(c, dtype, *pointers):
-    """The per-view forward's variant for C channels of `dtype` at the
-    given data pointers (features and output): 16-byte groups where C is
-    a whole number of them and every pointer is 16-byte aligned, else the
-    scalar variant."""
+def fwd_plan(c, dtype, *pointers):
+    """The forward's variant for C channels a view of `dtype` at the given
+    data pointers (features and output): 16-byte groups where C is a whole
+    number of them (then every view's offset in a fused row, view * C, is
+    aligned too) and every pointer is 16-byte aligned, else the scalar
+    variant."""
     vec = _vec(dtype)
     if c % vec or any(ptr % 16 for ptr in pointers):
         variant, vec = "scalar", 1
     else:
         variant = "vector"
     gx = max(1, min(c // vec, THREADS))
-    return ViewFwdPlan(variant, vec, gx, max(1, THREADS // gx))
+    return FwdPlan(variant, vec, gx, max(1, THREADS // gx))
 
 
-def view_bwd_plan(bv, c, n, dtype, g_pointer, sms=132):
-    """The per-view backward's launch for BV view rows, C channels of
-    `dtype` and N voxels, g at `g_pointer`, on a card with `sms` SMs: the
-    walk where C is a multiple of WALK_VEC and g is aligned to WALK_VEC
-    elements, else the direct scatter. A slice is up to MAX_GROUPS
-    groups; the voxels are cut into chunks for WALK_BLOCKS_PER_SM blocks
-    a SM (longer walks sum more taps before each atomic; fewer blocks
-    leave SMs idle)."""
+def bwd_plan(bv, c, n, dtype, *pointers, sms=132):
+    """The backward's launch for BV view rows, C channels a view of
+    `dtype` and N voxels, g (and, under the ReLU, the saved output) at
+    `pointers`, on a card with `sms` SMs: the walk where C is a multiple
+    of WALK_VEC (then every view's offset in a fused row is too) and
+    every pointer is aligned to WALK_VEC elements, else the direct
+    scatter. A slice is up to MAX_GROUPS groups; the voxels are cut into
+    chunks for WALK_BLOCKS_PER_SM blocks a SM (longer walks sum more taps
+    before each atomic; fewer blocks leave SMs idle)."""
     es = torch.finfo(dtype).bits // 8
-    if c == 0 or c % WALK_VEC or g_pointer % (WALK_VEC * es):
-        return ViewBwdPlan("direct", 0, 0, 0, 0, 0)
+    if c == 0 or c % WALK_VEC or any(ptr % (WALK_VEC * es)
+                                     for ptr in pointers):
+        return BwdPlan("direct", 0, 0, 0, 0, 0)
     groups = c // WALK_VEC
     gx = min(groups, MAX_GROUPS)
     slices = -(-groups // gx)
@@ -222,8 +249,7 @@ def view_bwd_plan(bv, c, n, dtype, g_pointer, sms=132):
     want = sms * WALK_BLOCKS_PER_SM // max(1, bv * slices)
     nchunks = max(1, min(want, -(-n // lanes)))
     chunk = max(1, -(-n // nchunks))
-    return ViewBwdPlan("walk", gx, lanes, slices, chunk,
-                       max(1, -(-n // chunk)))
+    return BwdPlan("walk", gx, lanes, slices, chunk, max(1, -(-n // chunk)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,30 +258,15 @@ def _sm_count(index):
 
 
 def gather(feats, x, y, fh, fw):
-    """Forward only, per-view layout. feats [B*V, fh*fw, C]
-    float32/bfloat16; x, y [B*V, N] float32. Returns [B*V, N, C] in
-    feats' dtype (see ops/projection.py::bilinear_gather)."""
+    """Forward only, per-view layout (the fused kernel with one view a
+    batch element and no ReLU). feats [B*V, fh*fw, C] float32/bfloat16;
+    x, y [B*V, N] float32. Returns [B*V, N, C] in feats' dtype (see
+    ops/projection.py::bilinear_gather)."""
     global view_launches
     _check_device(feats, "feats")
     if feats.device.type == "cpu":
         return plain.bilinear_gather(feats, x, y, fh, fw)
-    bv, p, c = feats.shape
-    n = x.shape[1]
-    if p != fh * fw:
-        raise ValueError(f"unproject kernel: feats {tuple(feats.shape)} vs "
-                         f"fh={fh} fw={fw}")
-    if not feats.is_contiguous():
-        raise ValueError("unproject kernel: feats must be contiguous")
-    _check_coords(x, y, bv, n, feats.device)
-    out = torch.empty((bv, n, c), dtype=feats.dtype, device=feats.device)
-    plan = view_fwd_plan(c, feats.dtype, feats.data_ptr(), out.data_ptr())
-    with torch.cuda.device(feats.device):
-        err = library().mvod_unproject(
-            feats.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            bv, fh, fw, c, n, plan.vec, plan.gx, plan.vy,
-            int(feats.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    check_launch(err, "mvod_unproject")
+    out, plan = _forward(feats, x, y, fh, fw, 1, False)
     view_launches += 1
     view_variants["fwd_" + plan.variant] += 1
     return out
@@ -270,21 +281,7 @@ def gather_bwd(g, x, y, fh, fw):
     _check_device(g, "g")
     if g.device.type == "cpu":
         return plain.bilinear_gather_bwd(g, x, y, fh, fw, g.dtype)
-    bv, n, c = g.shape
-    g = g.contiguous()
-    _check_coords(x, y, bv, n, g.device)
-    acc = torch.empty((bv, fh * fw, c), dtype=torch.float32, device=g.device)
-    dfeats = acc if g.dtype == torch.float32 else torch.empty_like(
-        acc, dtype=g.dtype)
-    plan = view_bwd_plan(bv, c, n, g.dtype, g.data_ptr(),
-                         _sm_count(g.device.index))
-    with torch.cuda.device(g.device):
-        err = library().mvod_unproject_bwd(
-            g.data_ptr(), x.data_ptr(), y.data_ptr(), acc.data_ptr(),
-            dfeats.data_ptr(), bv, fh, fw, c, n, plan.gx, plan.lanes,
-            plan.chunk, int(g.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    check_launch(err, "mvod_unproject_bwd")
+    dfeats, plan = _backward(g, None, x, y, fh, fw, 1, False)
     view_bwd_launches += 1
     view_variants["bwd_" + plan.variant] += 1
     return dfeats

@@ -172,17 +172,25 @@ def _scatter_taps(g, x, y, fh, fw):
     return df.reshape(bv, p, c)
 
 
-def scatter_taps_blocked(g, x, y, fh, fw, cs, chunk, lanes=1):
-    """`_scatter_taps` in the decomposition of the per-view backward
-    kernel's walk (csrc/unproject_view.cu, kernels/unproject.py::
-    view_bwd_plan): each (view row, slice of `cs` channels, chunk of
-    `chunk` voxels) is split among `lanes` lanes, each of which walks
-    ceil(chunk / lanes) consecutive voxels; every lane sums its own
-    float32 partial of dfeats, and the partials are added into the
-    result. Used by the tests, to hold the kernel's blocking to the plain
-    scatter."""
-    bv, n, c = g.shape
-    df = torch.zeros(bv, fh * fw, c, dtype=torch.float32, device=g.device)
+def scatter_taps_blocked(g, x, y, fh, fw, cs, chunk, lanes=1, v=1,
+                         saved=None):
+    """`_scatter_taps` in the decomposition of the backward kernel's walk
+    (csrc/unproject.cu, kernels/unproject.py::bwd_plan): each (view row,
+    slice of `cs` channels, chunk of `chunk` voxels) is split among
+    `lanes` lanes, each of which walks ceil(chunk / lanes) consecutive
+    voxels; every lane sums its own float32 partial of dfeats, and the
+    partials are added into the result. g is [B, N, V*C] with `v` views
+    (the per-view layout [B*V, N, C] is v = 1); with `saved` (the fused
+    forward's output, shaped as g) g passes only where saved > 0, the
+    ReLU's mask. Used by the tests, to hold the kernel's blocking to the
+    plain scatter."""
+    b, n, vc = g.shape
+    c = vc // v
+    if saved is not None:
+        g = torch.where(saved > 0, g, 0.0)
+    g = g.reshape(b, n, v, c).transpose(1, 2).reshape(b * v, n, c)
+    df = torch.zeros(b * v, fh * fw, c, dtype=torch.float32,
+                     device=g.device)
     for c0 in range(0, c, cs):
         for n0 in range(0, n, chunk):
             n1 = min(n, n0 + chunk)

@@ -8,7 +8,7 @@ jax nor the repo's conftest, so on a GPU host it runs as
         tests/test_torch_kernels_cuda.py
 
 Tolerances: the unprojection kernels (fused and per-view layouts, every
-variant of the per-view forward) use explicitly rounded float32
+variant of the forward) use explicitly rounded float32
 operations in the plain version's order, so float32 agrees bit for bit;
 in bfloat16 both round the same float32 sum once, also exact. The
 reprojection copies values: exact. The backward kernels sum with float32
@@ -164,7 +164,7 @@ def _edge_coords(g, bv, n, fh, fw):
     return x, y
 
 
-# The per-view kernels (csrc/unproject_view.cu): (fh, fw, C, N, bv,
+# The per-view layout of csrc/unproject.cu's kernels: (fh, fw, C, N, bv,
 # element offset of feats and g from their allocations, forward variant
 # and backward variant by dtype (float32, bfloat16)). C = 6 and 12 reach
 # the scalar forward where C is not a whole number of 16-byte groups, C = 6
@@ -206,7 +206,7 @@ def _view_case(name, dtype, dev, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(VIEW_CASES))
 def test_unproject_view_kernel_matches_plain(dev, dtype, case):
-    """The per-view layout [B*V, N, C] (mvod_unproject) against the plain
+    """The per-view layout [B*V, N, C] (`gather`) against the plain
     bilinear_gather, in the variant the shape and alignment select: equal
     bit for bit."""
     fh, fw, c, n, bv = VIEW_CASES[case][:5]
@@ -227,7 +227,7 @@ def test_unproject_view_kernel_matches_plain(dev, dtype, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(VIEW_CASES))
 def test_unproject_view_bwd_kernel_matches_plain(dev, dtype, case):
-    """Gradient of the per-view gather (mvod_unproject_bwd) against the
+    """Gradient of the per-view gather (`gather_bwd`) against the
     plain index_add_ scatter: through its autograd Function, and called
     on g itself, in the variant g's width and alignment select."""
     fh, fw, c, n, bv = VIEW_CASES[case][:5]
@@ -272,6 +272,151 @@ def test_unproject_view_bwd_ignores_invalid_taps(dev):
         torch.cuda.synchronize()
         assert unproject.view_variants["bwd_" + variant] == used + 1
         want = P.bilinear_gather_bwd(*cut, fh, fh, torch.float32)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+# The fused layout [B, N, V*C] of csrc/unproject.cu's kernels: (fh, fw,
+# C, N, B, V, element offset of feats and g from their allocations,
+# forward variant and backward variant by dtype (float32, bfloat16)).
+# V = 1 to 8; C = 6 reaches the scalar forward and the direct backward,
+# C = 12 the scalar forward in bfloat16 only, the offset tensors both by
+# alignment; the 10 x 10 maps with 64,000 voxels the contention of P6.
+FUSED_CASES = {
+    "v1": (40, 40, 64, 3000, 4, 1, 0, ("vector",) * 2, ("walk",) * 2),
+    "v2": (40, 40, 64, 3000, 2, 2, 0, ("vector",) * 2, ("walk",) * 2),
+    "v3_8x1": (8, 1, 64, 3000, 2, 3, 0, ("vector",) * 2, ("walk",) * 2),
+    "v4": (20, 20, 64, 3000, 1, 4, 0, ("vector",) * 2, ("walk",) * 2),
+    "v8": (10, 10, 64, 3000, 1, 8, 0, ("vector",) * 2, ("walk",) * 2),
+    "v2_c6": (8, 8, 6, 3000, 2, 2, 0, ("scalar",) * 2, ("direct",) * 2),
+    "v3_c12": (8, 8, 12, 3000, 1, 3, 0, ("vector", "scalar"),
+               ("walk",) * 2),
+    "v2_offset": (40, 40, 64, 3000, 1, 2, 1, ("scalar",) * 2,
+                  ("direct",) * 2),
+    "v4_offset": (20, 20, 64, 3000, 1, 4, 1, ("scalar",) * 2,
+                  ("direct",) * 2),
+    "v2_p6_contention": (10, 10, 64, 64000, 1, 2, 0, ("vector",) * 2,
+                         ("walk",) * 2),
+    "v4_p6_contention": (10, 10, 64, 64000, 1, 4, 0, ("vector",) * 2,
+                         ("walk",) * 2),
+}
+
+
+def _fused_case(name, dtype, dev, seed):
+    fh, fw, c, n, b, v, offset = FUSED_CASES[name][:7]
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(b * v, fh * fw, c, generator=g).to(dtype)
+    x, y = (t.to(dev) for t in _edge_coords(g, b * v, n, fh, fw))
+    gout = torch.randn(b, n, v * c, generator=g).to(dtype)
+    return _offset(feats, offset, dev), x, y, _offset(gout, offset, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_unproject_fused_kernel_matches_plain(dev, dtype, case):
+    """The fused layout (mvod_unproject_fused) against the plain
+    bilinear_gather_fused, with and without the ReLU, in the variant the
+    shape and alignment select: equal bit for bit."""
+    fh, fw, c, n, b, v = FUSED_CASES[case][:6]
+    variant = FUSED_CASES[case][7][dtype == torch.bfloat16]
+    feats, x, y, _ = _fused_case(case, dtype, dev, fh * 100 + fw + c + v)
+    for relu in (False, True):
+        ref = P.bilinear_gather_fused(feats, x, y, fh, fw, v, relu)
+        before, view = unproject.launches, unproject.view_launches
+        used = unproject.fused_variants["fwd_" + variant]
+        got = unproject.bilinear_gather_fused(feats, x, y, fh, fw, v, relu)
+        torch.cuda.synchronize()
+        assert unproject.launches == before + 1
+        assert unproject.fused_variants["fwd_" + variant] == used + 1
+        assert unproject.view_launches == view
+        assert got.dtype == dtype and got.shape == (b, n, v * c)
+        assert torch.equal(got, ref)
+        if relu:
+            assert bool((got >= 0).all()) and bool((ref == 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_unproject_fused_bwd_kernel_matches_plain(dev, dtype, case):
+    """Gradient of the fused gather (mvod_unproject_fused_bwd) against the
+    plain index_add_ scatter, with and without the ReLU mask: through its
+    autograd Function, and called on g itself, in the variant g's (and
+    the saved output's) width and alignment select."""
+    fh, fw, c, n, b, v = FUSED_CASES[case][:6]
+    variant = FUSED_CASES[case][8][dtype == torch.bfloat16]
+    feats, x, y, gout = _fused_case(case, dtype, dev, fh * 100 + fw + c + 9)
+    for relu in (False, True):
+        leaf = feats.clone().requires_grad_()
+        out = unproject.bilinear_gather_fused(leaf, x, y, fh, fw, v, relu)
+        saved = out.detach()
+        before = unproject.bwd_launches
+        used = unproject.fused_variants["bwd_" + variant]
+        out.backward(gout)
+        direct = unproject.gather_fused_bwd(gout, saved, x, y, fh, fw, v,
+                                            relu)
+        torch.cuda.synchronize()
+        assert unproject.bwd_launches == before + 2
+        assert unproject.fused_variants["bwd_" + variant] == used + 2
+        ref = P.bilinear_gather_fused_bwd(gout, saved, x, y, fh, fw, v,
+                                          relu, dtype)
+        tol = 1e-5 * float(ref.float().abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        for got in (leaf.grad, direct):
+            assert got.dtype == dtype and got.shape == ref.shape
+            err = (got.float() - ref.float()).abs()
+            assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unproject_fused_bwd_checks_the_saved_alignment(dev, dtype):
+    """Under the ReLU the walk reads the saved output beside g: a saved
+    output one element past its allocation takes the direct scatter, the
+    same output aligned the walk; both within tolerance of plain."""
+    fh, fw, c, n, b, v = 20, 20, 64, 3000, 1, 2
+    g = torch.Generator().manual_seed(23)
+    feats = torch.randn(b * v, fh * fw, c, generator=g).to(dtype).to(dev)
+    x, y = (t.to(dev) for t in _edge_coords(g, b * v, n, fh, fw))
+    gout = torch.randn(b, n, v * c, generator=g).to(dtype).to(dev)
+    saved = unproject.gather_fused(feats, x, y, fh, fw, v, True)
+    ref = P.bilinear_gather_fused_bwd(gout, saved, x, y, fh, fw, v, True,
+                                      dtype)
+    for s, variant in ((_offset(saved, 1, dev), "direct"), (saved, "walk")):
+        used = unproject.fused_variants["bwd_" + variant]
+        got = unproject.gather_fused_bwd(gout, s, x, y, fh, fw, v, True)
+        torch.cuda.synchronize()
+        assert unproject.fused_variants["bwd_" + variant] == used + 1
+        err = (got.float() - ref.float()).abs()
+        tol = 1e-5 * float(ref.float().abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        assert bool((err <= tol).all()), float(err.max())
+
+
+def test_unproject_fused_bwd_ignores_invalid_taps(dev):
+    """Fused layout, no ReLU: NaN and infinite coordinates, and
+    out-of-bounds voxels whose g is not finite, add nothing (both
+    variants): the gradient equals that of the same call without those
+    voxels."""
+    g = torch.Generator().manual_seed(19)
+    for c, variant in ((8, "walk"), (6, "direct")):
+        b, v, fh, n = 1, 3, 10, 600
+        x, y = _edge_coords(g, b * v, n, fh, fh)
+        gout = torch.randn(b, n, v * c, generator=g)
+        x[:, 300], y[:, 301] = float("nan"), float("nan")
+        x[:, 302], y[:, 303] = float("inf"), -float("inf")
+        x[:, 304:306], gout[:, 304:306] = -5.0, float("inf")
+        keep = [j for j in range(n) if j not in range(300, 306)]
+        args = [t.to(dev) for t in (gout, x, y)]
+        cut = [t[:, keep].contiguous() for t in args]
+        used = unproject.fused_variants["bwd_" + variant]
+        got = unproject.gather_fused_bwd(args[0], None, *args[1:], fh, fh,
+                                         v, False)
+        torch.cuda.synchronize()
+        assert unproject.fused_variants["bwd_" + variant] == used + 1
+        want = P.bilinear_gather_fused_bwd(cut[0], None, *cut[1:], fh, fh,
+                                           v, False, torch.float32)
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())

@@ -3,8 +3,7 @@ decomposition of the backward (ops/projection.py::scatter_taps_blocked:
 the walk's partials per view row, channel slice, voxel chunk and lane,
 summed) against the plain scatter and against `jax.grad` of the Pallas
 per-view gather in interpret mode, and the wrapper's launch plans
-(kernels/unproject.py::view_fwd_plan, view_bwd_plan), which are pure
-Python.
+(kernels/unproject.py::fwd_plan, bwd_plan), which are pure Python.
 
 Tolerances: the blocked and the plain scatter add the same float32
 products, grouped otherwise: within 1e-6 of the largest magnitude. The
@@ -114,7 +113,7 @@ def test_blocked_scatter_at_the_plans_blocking():
     x, y = _coords(rng, bv, n, fh, fw)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     for dtype in (torch.float32, torch.bfloat16):
-        plan = U.view_bwd_plan(bv, c, n, dtype, 0x1000, sms=4)
+        plan = U.bwd_plan(bv, c, n, dtype, 0x1000, sms=4)
         assert plan.variant == "walk" and plan.nchunks > 1
         g = torch.from_numpy(rng.randn(bv, n, c).astype(np.float32)).to(dtype)
         want = P.bilinear_gather_bwd(g, xt, yt, fh, fw, torch.float32)
@@ -163,7 +162,7 @@ def test_scatter_ignores_invalid_taps():
     (4096, torch.float32, (0x1000, 0x2000), "vector", 4, 256, 1),
 ])
 def test_view_fwd_plan(c, dtype, ptrs, variant, vec, gx, vy):
-    plan = U.view_fwd_plan(c, dtype, *ptrs)
+    plan = U.fwd_plan(c, dtype, *ptrs)
     assert plan == (variant, vec, gx, vy)
     assert plan.gx * plan.vy <= U.THREADS
 
@@ -176,9 +175,9 @@ def test_view_fwd_plan_on_a_sliced_tensor():
         feats = base[1:].view(4, 100, 64)
         assert feats.is_contiguous()
         out = torch.empty(4, 50, 64, dtype=dtype)
-        assert U.view_fwd_plan(64, dtype, base.data_ptr(),
+        assert U.fwd_plan(64, dtype, base.data_ptr(),
                                out.data_ptr()).variant == "vector"
-        assert U.view_fwd_plan(64, dtype, feats.data_ptr(),
+        assert U.fwd_plan(64, dtype, feats.data_ptr(),
                                out.data_ptr()).variant == "scalar"
 
 
@@ -194,7 +193,7 @@ def test_view_fwd_plan_on_a_sliced_tensor():
 def test_view_bwd_plan(c, dtype, ptr, plan):
     """The 4-view flagship (64,000 voxels) on 132 SMs, and the shapes and
     alignments that take the direct scatter."""
-    assert U.view_bwd_plan(4, c, 64000, dtype, ptr, sms=132) == plan
+    assert U.bwd_plan(4, c, 64000, dtype, ptr, sms=132) == plan
 
 
 def test_view_bwd_plan_covers_every_voxel_and_channel():
@@ -207,7 +206,7 @@ def test_view_bwd_plan_covers_every_voxel_and_channel():
         for c in (vec, 3 * vec, 64, 256, 1024):
             for n in (1, 7, 300, 64000, 1_000_000):
                 for bv in (1, 4, 16):
-                    plan = U.view_bwd_plan(bv, c, n, dtype, 0, sms=132)
+                    plan = U.bwd_plan(bv, c, n, dtype, 0, sms=132)
                     assert plan.variant == "walk"
                     groups = c // vec
                     assert plan.slices * plan.gx >= groups > (
@@ -222,14 +221,18 @@ def test_view_bwd_plan_covers_every_voxel_and_channel():
 
 def test_plans_mirror_the_cuda_source():
     """THREADS is the sources' kThreads, the forward's 16-byte groups hold
-    4 float32 or 8 bfloat16 channels, as csrc/unproject_view.cu's Vec16,
-    and a walk thread owns WALK_VEC channels."""
+    4 float32 or 8 bfloat16 channels, as csrc/unproject.cu's Vec16, a walk
+    thread owns WALK_VEC channels, and the source has one forward and one
+    backward entry point, which serve both layouts."""
     common = (CSRC / "common.cuh").read_text()
     assert re.search(rf"constexpr int kThreads = {U.THREADS};", common)
-    src = (CSRC / "unproject_view.cu").read_text()
+    src = (CSRC / "unproject.cu").read_text()
     assert "constexpr int kTile = kThreads;" in src
     for dtype, bits in ((torch.float32, "float"),
                         (torch.bfloat16, "__nv_bfloat16")):
         assert re.search(rf"struct Vec16<{bits}> {{\n  static constexpr int "
                          rf"kN = {U._vec(dtype)};", src)
     assert U.WALK_VEC == 4 and "__device__ __forceinline__ void load4(" in src
+    assert re.search(rf"constexpr int kWalkVec = {U.WALK_VEC};", src)
+    assert sorted(re.findall(r'extern "C" int (\w+)\(', src)) == [
+        "mvod_unproject_fused", "mvod_unproject_fused_bwd"]
