@@ -23,23 +23,34 @@ Phases, one line each (any failure exits non-zero):
                the achieved GB/s and the share of the bound (or, where a
                kernel runs under its HBM bound because the repeated calls
                are served from the 50 MB L2, l2_served=True and no
-               share). The unprojection lines also name the variant
-               launched (the flagship tensors must launch the vector
-               forward and the walk backward) and the largest and mean
+               share). Every line names the variant launched (the
+               flagship tensors must launch the vector forward, the
+               unprojection's walk backward and the reprojection's vector
+               backward); the unprojection lines also the largest and mean
                number of valid taps that land on one pixel of a view (the
                adds a direct scatter makes to one address per channel).
-               Then one level of each other variant of both layouts
-               against plain: the scalar forward and the direct backward
-               (P4 features and g offset by one element, so not 16-byte
-               aligned).
+               The reprojection backward is held to the plain version on a
+               CPU copy, exactly, and to itself run to run. Then one level
+               of each other variant against plain: the scalar forward and
+               the direct backward of both unprojection layouts and the
+               reprojection's scalar forward and backward (P4 tensors
+               offset by one element, so not 16-byte aligned), and the
+               reprojection's chunked backward (80^2 pixels a sample).
+               Last, one profiled reprojection backward a dtype: one
+               kernel, no memset, no cast.
   4. main    — inference: the engine (compat.MaskRCNN.detect) at the
                flagship config (2 views at 640^2, ResNet-50 with a 5-block
                stage 4, pyramid 64, conv3d, 40^3 grid, 20 samples,
                bfloat16) with seeded random weights, on 3 requests after one
                warm-up; forward launches must be 3 levels x 3 calls (the
                unprojection's in its vector variant) and no backward
-               kernel runs. Then the same requests once more, timed part
-               by part on the host clock.
+               kernel runs; every reprojection launch the vector
+               variants. Then the same requests once more, timed part by
+               part on the host clock, and one under torch.profiler: its
+               host synchronisations. Then the device time of the layout
+               copies on either side of the reprojection at each level
+               (the fused grid made [B, X, Y, Z, C] for the kernel, the
+               rays reshaped by DepthCollapse, and their gradients).
   5. train   — training: compat.MaskRCNN("training").train on a 640^2
                2-view synthetic dataset at the flagship training config
                (bench_train.py's: POST_NMS_ROIS_TRAINING 500,
@@ -118,6 +129,7 @@ from mulit_view_object_detection_torch.train.step import (  # noqa: E402
     draw_priorities, loss_and_grads, train_step)
 from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
     trainable_mask)
+from tools.torch_kernel_ab import host_syncs  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 LEVELS = {"P4": 40, "P5": 20, "P6": 10}
@@ -128,18 +140,24 @@ BF16_STEP = 2.0 ** -7           # a bf16 step: at most 2^-7 of the value
 # Forward: unprojection plain and kernel round the same float32 ops in the
 # same order (explicitly rounded in the kernel), then the same ReLU;
 # bfloat16 rounds the same float32 sum once: exact in both layouts.
-# Reprojection copies values: exact. Absolute tolerances.
+# Reprojection copies values: exact. Its backward adds each voxel's g rows
+# in float32 from 0 in ascending (sample, pixel) order and rounds once, as
+# the plain index_add_ does on the CPU: exact against the plain version
+# computed on a CPU copy (on the card the plain version adds with atomics
+# in no fixed order). Absolute tolerances.
 TOL = {("unproject", torch.float32): 0.0,
        ("unproject", torch.bfloat16): 0.0,
        ("unproject_view", torch.float32): 0.0,
        ("unproject_view", torch.bfloat16): 0.0,
        ("reproject", torch.float32): 0.0,
-       ("reproject", torch.bfloat16): 0.0}
-# Backward: both sides sum in float32 with atomics in no fixed order (up
-# to 4,720 terms per element at P6, phase 3's adds_per_pixel_max), so
-# |got - ref| <= 1e-4 * max|ref|;
-# bfloat16 casts that sum once: where the two sums straddle a rounding
-# boundary they differ by one bf16 step of the element more.
+       ("reproject", torch.bfloat16): 0.0,
+       ("reproject_bwd", torch.float32): 0.0,
+       ("reproject_bwd", torch.bfloat16): 0.0}
+# The unprojection's backward: both sides sum in float32 with atomics in
+# no fixed order (up to 4,720 terms per element at P6, phase 3's
+# adds_per_pixel_max), so |got - ref| <= 1e-4 * max|ref|; bfloat16 casts
+# that sum once: where the two sums straddle a rounding boundary they
+# differ by one bf16 step of the element more.
 BWD_REL = 1e-4
 REPLACES = {
     "unproject": "mulit_view_object_detection_tpu/kernels/"
@@ -377,6 +395,19 @@ def device_profile(fn, attempts=3):
     return None, None
 
 
+def device_events(fn):
+    """The device events of one profiled call of fn (torch.profiler):
+    {kernel, memset or copy name: count}."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def bound_ms(nbytes, flops):
     """(least time the card could take in ms, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -494,18 +525,18 @@ def adds_per_pixel(x, y, s):
 
 
 def variants_of(name):
-    """The launch counter by variant of kernel `name`'s layout (None for
-    the reprojection)."""
+    """The launch counter by variant of kernel `name` (its layout's, for
+    the unprojection)."""
     if name.startswith("unproject_view"):
         return unproject.view_variants
-    return unproject.fused_variants if name.startswith("unproject") else None
+    if name.startswith("unproject"):
+        return unproject.fused_variants
+    return reproject.variants
 
 
 def launched_variant(name, fn):
     """fn's result and the variant of kernel `name` that it launched."""
     counter = variants_of(name)
-    if counter is None:
-        return fn(), None
     before = dict(counter)
     out = fn()
     grew = [k for k, n in counter.items() if n > before.get(k, 0)]
@@ -513,6 +544,9 @@ def launched_variant(name, fn):
 
 
 def _reproject_cases(grid, xg, yg, iz, dtype):
+    """The reprojection's forward and backward, as _unproject_cases gives
+    the unprojection's; the backward's tuple ends with its exact
+    reference, the plain version on a CPU copy."""
     b, nx, ny, nz, c = grid.shape
     s_d, npix = xg.shape[1], xg.shape[2]
     es = grid.element_size()
@@ -553,7 +587,9 @@ def _reproject_cases(grid, xg, yg, iz, dtype):
             lambda: torch.autograd.grad(lib_out, lib_in, lib_g,
                                         retain_graph=True),
             n_valid * c * es + coord_bytes + grid.numel() * es,
-            n_valid * c),
+            n_valid * c,
+            lambda: plain.zslice_gather_bwd(g.cpu(), xg.cpu(), yg.cpu(), iz,
+                                            tuple(grid.shape), dtype)),
     }
 
 
@@ -562,9 +598,9 @@ def _check(name, got, want, dtype):
     if got.shape != want.shape or got.dtype != want.dtype:
         raise RuntimeError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
                            f"{tuple(want.shape)} {want.dtype}")
-    err = (got.float() - want.float()).abs()
+    err = (got.float().to(want.device) - want.float()).abs()
     max_err = float(err.max())
-    if not name.endswith("_bwd"):
+    if (name, dtype) in TOL:
         tol = TOL[(name, dtype)]
         ok = max_err <= tol
     else:
@@ -597,7 +633,8 @@ def variant_checks(rcam, rcam4, kmat, pts, gen):
     4 in the per-view one) of the variants that the flagship tensors do
     not reach, against plain: the scalar forward and the direct backward
     of each layout, on features and g offset by one element from their
-    allocations (not 16-byte aligned)."""
+    allocations (not 16-byte aligned); then the reprojection's
+    (`_reproject_variant_checks`)."""
     c, s = 64, LEVELS["P4"]
     for dtype in (torch.float32, torch.bfloat16):
         for name, r, v in (("unproject", rcam, 2),
@@ -634,17 +671,62 @@ def variant_checks(rcam, rcam4, kmat, pts, gen):
                      lambda: unproject.gather_bwd(g, x, y, s, s),
                      lambda: plain.bilinear_gather_bwd(g, x, y, s, s,
                                                        dtype)))
-            for kname, expect, kern, ref in checks:
-                got, variant = launched_variant(kname, kern)
-                want = ref()
-                torch.cuda.synchronize()
-                err, tol = _check(kname, got, want, dtype)
-                if variant != expect:
-                    raise RuntimeError(f"{kname} launched {variant}, not "
-                                       f"{expect}")
-                say("kernels", kernel=kname, variant=variant, level="P4",
-                    views=v, dtype=str(dtype).split(".")[1],
-                    max_abs_err=err, tol=tol, ms=round(device_ms(kern), 5))
+            run_variant_checks([(v, "P4") + check for check in checks],
+                               dtype)
+        run_variant_checks(_reproject_variant_checks(kmat, gen, dtype),
+                           dtype)
+
+
+def run_variant_checks(runs, dtype):
+    """Each (views, level, kernel, variant, kernel call, reference) of
+    `runs`: the kernel against its reference, the variant it launched,
+    and its device time; one line each."""
+    for v, level, kname, expect, kern, ref in runs:
+        got, variant = launched_variant(kname, kern)
+        want = ref()
+        torch.cuda.synchronize()
+        err, tol = _check(kname, got, want, dtype)
+        if variant != expect:
+            raise RuntimeError(f"{kname} launched {variant}, not {expect}")
+        say("kernels", kernel=kname, variant=variant, level=level, views=v,
+            dtype=str(dtype).split(".")[1], max_abs_err=err, tol=tol,
+            ms=round(device_ms(kern), 5))
+
+
+def _reproject_variant_checks(kmat, gen, dtype):
+    """The reprojection's variants that the flagship tensors do not reach,
+    as (views, level, kernel, variant, kernel call, exact reference): at
+    P4 (40^2 pixels, 20 samples, C=64, 40^3 grid) the scalar forward on a
+    grid and the scalar backward on a g offset by one element (not
+    16-byte aligned); and the vector backward on 80^2 pixels a sample, a
+    P3-sized map, which a block maps in chunks of MAX_CHUNK. The
+    backward's reference is the plain version on a CPU copy."""
+    cfg = FlagshipConfig()
+    n, c, shape = cfg.nvox, 64, (1, 40, 40, 40, 64)
+    out = []
+    for level, s, offset in (("P4", LEVELS["P4"], 1), ("P3", 80, 0)):
+        xg, yg, iz = plain.reprojection_coords(kmat, (640, 640), s,
+                                               cfg.samples, cfg, n, n, n)
+        xg, yg = xg.contiguous(), yg.contiguous()
+        size = cfg.samples * s * s * c
+        g = torch.randn(size + offset, generator=gen).to(DEV, dtype)[
+            offset:].view(1, cfg.samples, s * s, c)
+        grid = torch.randn(n ** 3 * c + offset, generator=gen).to(
+            DEV, dtype)[offset:].view(shape)
+        variant = "scalar" if offset else "vector_chunked"
+        if offset:
+            out.append((1, level, "reproject", "fwd_scalar",
+                        lambda grid=grid, xg=xg, yg=yg, iz=iz:
+                        reproject.gather(grid, xg, yg, iz),
+                        lambda grid=grid, xg=xg, yg=yg, iz=iz:
+                        plain.zslice_gather(grid, xg, yg, iz)))
+        out.append((1, level, "reproject_bwd", "bwd_" + variant,
+                    lambda g=g, xg=xg, yg=yg, iz=iz:
+                    reproject.gather_bwd(g, xg, yg, iz, shape),
+                    lambda g=g, xg=xg, yg=yg, iz=iz:
+                    plain.zslice_gather_bwd(g.cpu(), xg.cpu(), yg.cpu(), iz,
+                                            shape, dtype)))
+    return out
 
 
 def measure(name, case, level, dtype, views, adds, outside):
@@ -652,25 +734,31 @@ def measure(name, case, level, dtype, views, adds, outside):
     tolerance, the variant launched), then the device times of the
     kernel, the plain version and the library call, the host-clock call
     times and the bound; prints one line and returns its numbers."""
-    kern, ref, lib, nbytes, flops = case
+    kern, ref, lib, nbytes, flops, *exact = case
     got, variant = launched_variant(name, kern)
-    want = ref()
+    want = exact[0]() if exact else ref()
     torch.cuda.synchronize()
     err, tol = _check(name, got, want, dtype)
     # the flagship tensors take the vector forward and the walk backward
-    want_variant = "bwd_walk" if name.endswith("_bwd") else "fwd_vector"
-    if variant is not None and variant != want_variant:
+    # (the reprojection: its vector backward)
+    want_variant = "fwd_vector"
+    if name.endswith("_bwd"):
+        want_variant = ("bwd_vector" if name.startswith("reproject")
+                        else "bwd_walk")
+    if variant != want_variant:
         raise RuntimeError(f"{name} launched {variant}, not {want_variant}")
     # runs of the same kernel on the same inputs: the spread that float
-    # atomics leave in a backward's last bits
+    # atomics leave in a backward's last bits (none in the reprojection's)
     spread = (max(float((kern().float() - got.float()).abs().max())
                   for _ in range(3)) if name.endswith("_bwd") else 0.0)
+    if name == "reproject_bwd" and spread != 0.0:
+        raise RuntimeError(f"{name} {dtype}: two runs differ by {spread}")
     ms, plain_ms, lib_ms = device_ms(kern), device_ms(ref), device_ms(lib)
     call_ms, plain_call_ms = median_ms(kern), median_ms(ref)
     b_ms, b_by = bound_ms(nbytes, flops)
-    extra = {}
-    if variant is not None:
-        extra = dict(variant=variant, adds_per_pixel_max=adds[0],
+    extra = dict(variant=variant)
+    if name.startswith("unproject"):
+        extra.update(adds_per_pixel_max=adds[0],
                      adds_per_pixel_mean=round(adds[1], 2))
     say("kernels", kernel=name, level=level, views=views,
         dtype=str(dtype).split(".")[1], shape=list(got.shape),
@@ -748,7 +836,30 @@ def phase_kernels():
                 keep(name, label, dtype,
                      measure(name, case, level, dtype, views, a, outside))
     variant_checks(rcam, rcam4, kmat, pts, g)
+    trace_reproject_bwd(kmat, g)
     return record
+
+
+def trace_reproject_bwd(kmat, gen):
+    """One profiled call of the reprojection backward at P4 in each dtype:
+    it must run as one kernel, with no memset and no cast pass."""
+    cfg = FlagshipConfig()
+    n = cfg.nvox
+    xg, yg, iz = plain.reprojection_coords(kmat, (640, 640), LEVELS["P4"],
+                                           cfg.samples, cfg, n, n, n)
+    xg, yg = xg.contiguous(), yg.contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(1, cfg.samples, xg.shape[2], 64, generator=gen).to(
+            DEV, dtype)
+        events = device_events(lambda: reproject.gather_bwd(
+            g, xg, yg, iz, (1, n, n, n, 64)))
+        say("kernels", kernel="reproject_bwd", level="P4",
+            dtype=str(dtype).split(".")[1],
+            device_events=json.dumps(events, separators=(",", ":")))
+        if len(events) != 1 or sum(events.values()) != 1 or \
+                "bwd_kernel" not in next(iter(events)):
+            raise RuntimeError(f"reproject_bwd ran {events}, not one "
+                               f"kernel")
 
 
 def request_images(rng, n, hw, views=2):
@@ -769,6 +880,7 @@ def reset_counts():
     unproject.view_variants.clear()
     unproject.fused_variants.clear()
     reproject.launches = reproject.bwd_launches = 0
+    reproject.variants.clear()
 
 
 def read_counts():
@@ -781,17 +893,22 @@ def read_counts():
 
 
 def check_variants(tag, counts):
-    """The unprojection variants launched since the counts were reset:
-    on the main paths every launch must be the vector forward or the walk
-    backward. Returns them, by layout and variant."""
+    """The kernel variants launched since the counts were reset: on the
+    main paths every launch must be the vector forward, the walk backward
+    of the unprojection or the reprojection's one-pass vector backward.
+    Returns them, by kernel family and variant."""
     got = {f"fused_{k}": n for k, n in unproject.fused_variants.items() if n}
     got.update({f"view_{k}": n for k, n in unproject.view_variants.items()
+                if n})
+    got.update({f"reproject_{k}": n for k, n in reproject.variants.items()
                 if n})
     want = {k: n for k, n in (
         ("fused_fwd_vector", counts["unproject"]),
         ("fused_bwd_walk", counts["unproject_bwd"]),
         ("view_fwd_vector", counts["unproject_view"]),
-        ("view_bwd_walk", counts["unproject_view_bwd"])) if n}
+        ("view_bwd_walk", counts["unproject_view_bwd"]),
+        ("reproject_fwd_vector", counts["reproject"]),
+        ("reproject_bwd_vector", counts["reproject_bwd"])) if n}
     if got != want:
         raise RuntimeError(f"{tag} launched the variants {got}, not {want}")
     return got
@@ -802,12 +919,14 @@ def expected(**counts):
     return {k: counts.get(k, 0) for k in KERNELS}
 
 
-def run_requests(tag, cfg, per_request):
+def run_requests(tag, cfg, per_request, probe=None):
     """The engine's detect at `cfg` with seeded weights: one warm-up
     request (every raw output must be finite), 3 counted requests, then
-    the same 3 once more, timed part by part on the host clock.
-    `per_request` is the launch count each kernel must reach per request.
-    Returns the counts of the counted run."""
+    the same 3 once more, timed part by part on the host clock, and one
+    more under torch.profiler, for its host synchronisations. `probe`,
+    if given, is called with the engine and a call of run_model on a
+    request. `per_request` is the launch count each kernel must reach per
+    request. Returns the counts of the counted run."""
     t = time.perf_counter()
     eng = MaskRCNN("inference", cfg, "build")
     eng.init_weights(torch.Generator().manual_seed(0))
@@ -872,12 +991,69 @@ def run_requests(tag, cfg, per_request):
             "copy_out": round((t3 - t2) * 1e3, 3),
             "unmold": round((t4 - t3) * 1e3, 3),
             "request": round((t4 - t1) * 1e3, 3)}, separators=(",", ":")))
+    img, rcam, dep = reqs[1], rcams[1], depths[1]
+    syncs = host_syncs(lambda: eng.detect([img], rcam, kmat, dep))
+    say(tag, host_syncs_per_request=sum(syncs.values()),
+        host_syncs=json.dumps(syncs, separators=(",", ":")))
+    if probe is not None:
+        probe(eng, lambda: eng.run_model([img], rcam, kmat, dep))
     return launches
 
 
 def phase_main():
     return run_requests("main", FlagshipConfig(),
-                        {"unproject": 3, "reproject": 3})
+                        {"unproject": 3, "reproject": 3},
+                        probe=layout_copies)
+
+
+def layout_copies(eng, forward):
+    """The device time of the layout copies on either side of the
+    reprojection at each level, on the tensors of one forward: the fused
+    grid [B, C, X, Y, Z] (the U-Net's output, in its memory format) made
+    [B, X, Y, Z, C] contiguous for the kernel, and its gradient made the
+    U-Net's format again; the rays [B, D, S, S, C] permuted and reshaped
+    to [B, C*D, S, S] by DepthCollapse, and its gradient made [B, D, S, S,
+    C] contiguous for the backward kernel. A copy that is a view costs
+    nothing (copy=False)."""
+    taken, hooks = {}, []
+    for lvl in (4, 5, 6):
+        hooks.append(getattr(eng.model, f"grid_fusion_p{lvl}")
+                     .register_forward_hook(
+                         lambda m, a, out, lvl=lvl: taken.__setitem__(
+                             ("fused", lvl), out.detach())))
+        hooks.append(getattr(eng.model, f"depth_collapse_p{lvl}")
+                     .register_forward_hook(
+                         lambda m, a, out, lvl=lvl: taken.__setitem__(
+                             ("rays", lvl), a[0].detach())))
+    forward()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    for lvl in (4, 5, 6):
+        fused, rays = taken[("fused", lvl)], taken[("rays", lvl)]
+        b, c, x, y, z = fused.shape
+        fmt = (torch.channels_last_3d if fused.is_contiguous(
+            memory_format=torch.channels_last_3d) else torch.contiguous_format)
+        d, s1, s2 = rays.shape[1:4]
+        dgrid = torch.randn(b, x, y, z, c, device=DEV).to(fused.dtype)
+        drays = torch.randn(b, c * d, s1, s2, device=DEV).to(rays.dtype)
+        copies = {
+            "grid_fwd": lambda: fused.permute(0, 2, 3, 4, 1).contiguous(),
+            "grid_bwd": lambda: dgrid.permute(0, 4, 1, 2, 3).contiguous(
+                memory_format=fmt),
+            "collapse_fwd": lambda: rays.permute(0, 4, 1, 2, 3).reshape(
+                b, c * d, s1, s2),
+            "collapse_bwd": lambda: drays.reshape(b, c, d, s1, s2).permute(
+                0, 2, 3, 4, 1).contiguous()}
+        sources = {"grid_fwd": fused, "grid_bwd": dgrid,
+                   "collapse_fwd": rays, "collapse_bwd": drays}
+        say("layouts", level=f"P{lvl}", fused_format=str(fmt).split(".")[1],
+            **{k: json.dumps({
+                "ms": round(device_ms(fn), 5),
+                "copy": fn().data_ptr() != sources[k].data_ptr(),
+                "mbytes": round(sources[k].numel()
+                                * sources[k].element_size() / 1e6, 3)},
+                separators=(",", ":")) for k, fn in copies.items()})
 
 
 def time_steps(tag, eng, ds, cfg):

@@ -31,15 +31,15 @@ _SIGNATURES = {
     # csrc/unproject.cu: feats, x, y, out, b, v, fh, fw, c, n, relu, vec,
     # gx, vy, is_bf16, stream
     "mvod_unproject_fused": [_P] * 4 + [_I] * 11 + [_P],
-    # grid, xg, yg, iz (host), out, b, nx, ny, nz, c, s_d, npix, is_bf16,
-    # stream
-    "mvod_reproject_nearest": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # grid, xg, yg, iz (host), out, b, nx, ny, nz, c, s_d, npix, vec, gx,
+    # vy, is_bf16, stream
+    "mvod_reproject_nearest": [_P] * 5 + [_I] * 11 + [_P],
     # g, saved, x, y, acc, dfeats, b, v, fh, fw, c, n, relu, gx, lanes,
     # chunk, is_bf16, stream
     "mvod_unproject_fused_bwd": [_P] * 6 + [_I] * 11 + [_P],
-    # g, xg, yg, iz (host), acc, dgrid, b, nx, ny, nz, c, s_d, npix,
-    # is_bf16, stream
-    "mvod_reproject_nearest_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # g, xg, yg, iz (host), dgrid, b, nx, ny, nz, c, s_d, npix, vec, gx,
+    # items, chunk, is_bf16, stream
+    "mvod_reproject_nearest_bwd": [_P] * 5 + [_I] * 12 + [_P],
 }
 
 

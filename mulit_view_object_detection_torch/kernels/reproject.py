@@ -6,11 +6,19 @@ Replaces the Pallas TPU kernels of
 `zslice_gather` (forward, `_fwd_kernel`) and its backward (`_bwd_kernel`,
 via `_reproj_bwd`); source `csrc/reproject.cu`. The TPU kernels recast the
 nearest-voxel gather and its transpose as one-hot matmuls per depth sample
-over a z-major copy of the grid; on Hopper each output element is one load
-and one store, and each gradient element one atomic add, so both kernels
-are bound by bytes and work on the `[B, nx, ny, nz, C]` grid in place, one
-thread per element of `[B, S_d, npix, C]`, channel fastest. The forward is
-a copy, so exact in any dtype.
+over a z-major copy of the grid; on Hopper both move bytes and work on the
+`[B, nx, ny, nz, C]` grid in place. The forward copies 16-byte channel
+groups, one thread per (sample, pixel, group): exact in any dtype. The
+backward writes every element of the gradient grid once, in g's dtype: a
+block owns a band of one z-slice, builds the band's voxel -> pixel map in
+shared memory from the samples that read the slice (none: it stores
+zeros), and sums each voxel's g rows in float32 in ascending (sample,
+pixel) order, the plain CPU `index_add_`'s order, so it equals the plain
+version bit for bit and repeats itself run to run. Each kernel has a
+scalar variant for a C that is not a whole number of 16-byte groups or an
+unaligned tensor, and the backward maps the pixels in chunks where a
+sample has more than MAX_CHUNK; the variant is a pure function of shape
+and alignment (`fwd_plan`, `bwd_plan`), chosen before the launch.
 
 `zslice_gather` is differentiable in the grid (a torch.autograd.Function,
 as `jax.custom_vjp` is in the JAX package). Each wrapper takes the plain
@@ -20,16 +28,81 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+import collections
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..ops import projection as plain
+from . import unproject
 from .build import check_launch, library
 
 # Launches of the CUDA kernels in this process (plain CPU calls not
-# counted): the forward and the backward.
+# counted): the forward and the backward, and both by variant
+# ("fwd_vector", "fwd_scalar", "bwd_vector", "bwd_scalar",
+# "bwd_vector_chunked", "bwd_scalar_chunked").
 launches = 0
 bwd_launches = 0
+variants = collections.Counter()
+
+THREADS = unproject.THREADS   # threads a block has (kThreads)
+MAX_ACC = 32                  # float32 sums a backward thread keeps
+                              # (kMaxAcc): items * vec
+MAX_BAND = 256                # voxels a backward block owns (kMaxBand)
+MAX_CHUNK = 4096              # pixels a backward block maps (kMaxChunk)
+WARPS = THREADS // 32         # warps a block has (kWarps)
+
+# The forward's variant and block: the unprojection forward's rule
+# (16-byte groups where C is a whole number of them and the grid and
+# output pointers are 16-byte aligned, else one channel a thread; gx
+# threads over the groups, vy pixels a block).
+fwd_plan = unproject.fwd_plan
+
+
+class BwdPlan(NamedTuple):
+    """Launch of the backward: `vec` channels a thread (1 for the scalar
+    variants, else 16 bytes' worth); a block of THREADS threads owns `gx`
+    channel groups (one of `slices`) of `band` = items * (THREADS // gx)
+    voxels of a z-slice (one of `bands`), each thread `items` voxels; a
+    block row stores one unread slice's zeros and sums one read slice; it
+    maps at most `chunk` pixels of a sample at a time (the "_chunked"
+    variants where a sample has more); `smem` bytes of shared memory."""
+    variant: str
+    vec: int
+    gx: int
+    items: int
+    band: int
+    bands: int
+    slices: int
+    chunk: int
+    smem: int
+
+
+def bwd_plan(nx, ny, c, npix, dtype, *pointers):
+    """The backward's launch for an nx x ny slice, C channels of `dtype`,
+    npix pixels a sample, g and the gradient grid at `pointers`: 16-byte
+    groups where C is a whole number of them and every pointer is 16-byte
+    aligned, else one channel a thread; as many voxels a thread as
+    MAX_ACC float32 sums hold (4 in bf16, 8 in float32: a band of 128
+    voxels at C = 64), at most MAX_BAND a band; chunks of MAX_CHUNK
+    pixels where a sample has more."""
+    vec = 128 // torch.finfo(dtype).bits        # channels in 16 bytes
+    if c % vec or any(ptr % 16 for ptr in pointers):
+        kind, vec = "scalar", 1
+    else:
+        kind = "vector"
+    groups = max(1, c // vec)
+    gx = min(groups, THREADS)
+    vy = THREADS // gx
+    items = max(1, min(MAX_ACC // vec, MAX_BAND // vy))
+    band = items * vy
+    chunk = max(1, min(npix, MAX_CHUNK))
+    if npix > MAX_CHUNK:
+        kind += "_chunked"
+    smem = 4 * (2 * chunk + band * WARPS + WARPS)
+    return BwdPlan(kind, vec, gx, items, band, -(-(nx * ny) // band),
+                   -(-groups // gx), chunk, smem)
 
 
 def _check(t, what, xg, yg, iz, b, nz):
@@ -69,22 +142,25 @@ def gather(grid, xg, yg, iz):
         raise ValueError("reproject kernel: grid must be contiguous")
     s_d, npix = xg.shape[1], xg.shape[2]
     out = torch.empty((b, s_d, npix, c), dtype=grid.dtype, device=grid.device)
+    plan = fwd_plan(c, grid.dtype, grid.data_ptr(), out.data_ptr())
     with torch.cuda.device(grid.device):
         err = library().mvod_reproject_nearest(
             grid.data_ptr(), xg.data_ptr(), yg.data_ptr(), iz.ctypes.data,
-            out.data_ptr(), b, nx, ny, nz, c, s_d, npix,
-            int(grid.dtype == torch.bfloat16),
+            out.data_ptr(), b, nx, ny, nz, c, s_d, npix, plan.vec, plan.gx,
+            plan.vy, int(grid.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_reproject_nearest")
     launches += 1
+    variants["fwd_" + plan.variant] += 1
     return out
 
 
 def gather_bwd(g, xg, yg, iz, grid_shape):
     """Gradient of `gather` with respect to the grid: g [B, S_d, npix, C];
     grid_shape (B, nx, ny, nz, C). Returns [B, nx, ny, nz, C] in g's
-    dtype, summed in float32 (atomics on the card, so the last bits vary
-    from run to run); voxels no valid sample read are 0."""
+    dtype: each voxel's float32 sum of the g rows that read it, in
+    ascending (sample, pixel) order, rounded once (the plain version's
+    sum on the CPU, bit for bit); voxels no valid sample read are 0."""
     global bwd_launches
     if _device(g) == "cpu":
         return plain.zslice_gather_bwd(g, xg, yg, iz, grid_shape, g.dtype)
@@ -95,17 +171,17 @@ def gather_bwd(g, xg, yg, iz, grid_shape):
         raise ValueError(f"reproject bwd: g {tuple(g.shape)} vs "
                          f"[{b}, {s_d}, {npix}, {c}]")
     g = g.contiguous()
-    acc = torch.empty(tuple(grid_shape), dtype=torch.float32, device=g.device)
-    dgrid = acc if g.dtype == torch.float32 else torch.empty_like(
-        acc, dtype=g.dtype)
+    dgrid = torch.empty(tuple(grid_shape), dtype=g.dtype, device=g.device)
+    plan = bwd_plan(nx, ny, c, npix, g.dtype, g.data_ptr(), dgrid.data_ptr())
     with torch.cuda.device(g.device):
         err = library().mvod_reproject_nearest_bwd(
             g.data_ptr(), xg.data_ptr(), yg.data_ptr(), iz.ctypes.data,
-            acc.data_ptr(), dgrid.data_ptr(), b, nx, ny, nz, c, s_d, npix,
-            int(g.dtype == torch.bfloat16),
+            dgrid.data_ptr(), b, nx, ny, nz, c, s_d, npix, plan.vec, plan.gx,
+            plan.items, plan.chunk, int(g.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "mvod_reproject_nearest_bwd")
     bwd_launches += 1
+    variants["bwd_" + plan.variant] += 1
     return dgrid
 
 

@@ -23,6 +23,8 @@ the oracles the CUDA kernels are held against on the card.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -78,41 +80,56 @@ def project_voxel_coords(Rcam, Kmat, image_shape, grid_pts, fh, fw):
     return x, y
 
 
-def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
-                        nx, ny, nz):
-    """Fractional grid coords (x, y) [B, S_d, S*S] float32 of every depth
-    sample of every pixel ray, and the per-sample z index [S_d] int32
-    (host numpy, -1 = out of grid). `_coords` of the JAX reprojection
-    kernel (model_multi.py:252-298)."""
+@functools.lru_cache(maxsize=64)
+def _ray_constants(device, image_h, proj_size, samples, vmin, vmax, vmin_z,
+                   vsize_z, vmax_z, nx, ny, nz):
+    """What `reprojection_coords` computes from shapes and the grid
+    config alone, once per (device, shapes, config): the pixel vectors
+    [3, S*S] and the sample depths [1, S_d, 1] on `device` (each copy from
+    host memory synchronises the host with the card), the offsets and
+    scales of x and y, and the z index [S_d] (numpy)."""
     s = proj_size
     npix = s * s
-    rsz = float(proj_size) / float(image_shape[0])
+    rsz = float(proj_size) / float(image_h)
     r = np.arange(0.5, s, 1.0, dtype=np.float32)
     xs, ys = np.meshgrid(r, r)
     pix = torch.from_numpy(np.stack(
         [xs.ravel(), ys.ravel(), np.full(npix, rsz, np.float32)],
-        axis=0)).to(Kmat.device)
-    rays = torch.einsum("bij,jn->bin", torch.linalg.inv(Kmat * rsz), pix)
+        axis=0)).to(device)
 
-    z_samples = np.linspace(config.vmin_z + config.vsize_z / 2.0,
-                            config.vmax_z - config.vsize_z / 2.0,
+    z_samples = np.linspace(vmin_z + vsize_z / 2.0, vmax_z - vsize_z / 2.0,
                             samples).astype(np.float32)
-    vminv = np.array([config.vmin, config.vmin,
-                      config.vmin_z + config.vsize_z / 2.0], np.float32)
-    vmaxv = np.array([config.vmax, config.vmax, config.vmax_z], np.float32)
+    vminv = np.array([vmin, vmin, vmin_z + vsize_z / 2.0], np.float32)
+    vmaxv = np.array([vmax, vmax, vmax_z], np.float32)
     nvoxv = np.array([nx, ny, nz], np.float32)
     span = vmaxv - vminv
-
-    zt = torch.from_numpy(z_samples).to(Kmat.device)[None, :, None]
-    xg = (rays[:, 0, None, :] * zt - float(vminv[0])) / float(span[0]) \
-        * float(nvoxv[0])
-    yg = (rays[:, 1, None, :] * zt - float(vminv[1])) / float(span[1]) \
-        * float(nvoxv[1])
+    zt = torch.from_numpy(z_samples).to(device)[None, :, None]
 
     zg = (z_samples - vminv[2]) / span[2] * nvoxv[2]
     iz = np.rint(zg).astype(np.int32)
     iz = np.where((iz >= 0) & (iz < nz), iz, -1).astype(np.int32)
-    return xg, yg, iz
+    scale = tuple((float(vminv[k]), float(span[k]), float(nvoxv[k]))
+                  for k in range(2))
+    return rsz, pix, zt, scale, iz
+
+
+def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
+                        nx, ny, nz):
+    """Fractional grid coords (x, y) [B, S_d, S*S] float32 of every depth
+    sample of every pixel ray, and the per-sample z index [S_d] int32
+    (host numpy, -1 = out of grid). `_coords` of the JAX
+    reprojection kernel (model_multi.py:252-298). On the card it makes no
+    host synchronisation: the constants are cached (`_ray_constants`)
+    and the inverse is `inv_ex`'s, which checks nothing on the host."""
+    rsz, pix, zt, ((x0, xspan, xn), (y0, yspan, yn)), iz = _ray_constants(
+        Kmat.device, image_shape[0], proj_size, samples, config.vmin,
+        config.vmax, config.vmin_z, config.vsize_z, config.vmax_z, nx, ny,
+        nz)
+    rays = torch.einsum("bij,jn->bin",
+                        torch.linalg.inv_ex(Kmat * rsz).inverse, pix)
+    xg = (rays[:, 0, None, :] * zt - x0) / xspan * xn
+    yg = (rays[:, 1, None, :] * zt - y0) / yspan * yn
+    return xg, yg, iz.copy()
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +313,71 @@ def zslice_gather_bwd(g, xg, yg, iz, grid_shape, dtype):
     dg = torch.zeros(b * nx * ny * nz, c, dtype=torch.float32,
                      device=g.device)
     dg.index_add_(0, flat.reshape(-1), contrib.reshape(-1, c))
+    return dg.reshape(b, nx, ny, nz, c).to(dtype)
+
+
+def reproject_buckets(keys, nvb, warps):
+    """The backward kernel's inverse map of one chunk (csrc/reproject.cu,
+    step 2): keys [m] int (a voxel of the band, or -1) cut into `warps`
+    contiguous runs; the counts per (voxel, run), their exclusive scan in
+    (voxel, run) order, and each run's entries placed in order of their
+    rank among the run's equal keys. Returns (start [nvb], size [nvb],
+    entries): bucket v is entries[start[v]:start[v] + size[v]]."""
+    keys = np.asarray(keys)
+    m = len(keys)
+    per = -(-m // warps)
+    counts = np.zeros((nvb, warps), np.int64)
+    for j, k in enumerate(keys):
+        if k >= 0:
+            counts[k, j // per] += 1
+    off = (np.cumsum(counts.reshape(-1)) - counts.reshape(-1)).reshape(
+        nvb, warps)
+    entries = np.full(int(counts.sum()), -1, np.int64)
+    for j, k in enumerate(keys):
+        if k >= 0:
+            entries[off[k, j // per]] = j
+            off[k, j // per] += 1
+    size = counts.sum(1)
+    return np.cumsum(size) - size, size, entries
+
+
+def zslice_gather_bwd_blocked(g, xg, yg, iz, grid_shape, dtype, band, chunk,
+                              warps=8):
+    """`zslice_gather_bwd` in the decomposition of the backward kernel
+    (csrc/reproject.cu, kernels/reproject.py::bwd_plan): per batch
+    element, z-slice and band of `band` consecutive voxels (ix, iy) of the
+    slice, the samples with iz[s] == z in ascending s and their pixels in
+    chunks of `chunk`; each chunk's map from `reproject_buckets`, and each
+    voxel's float32 sum added in its bucket's order, position by position,
+    starting from 0 (slices no sample reads stay 0). Returns
+    [B, nx, ny, nz, C] in `dtype`. Used by the tests, to hold the
+    kernel's order to the plain scatter's."""
+    b, nx, ny, nz, c = grid_shape
+    s_d, npix = xg.shape[1], xg.shape[2]
+    iz = np.asarray(iz)
+    ix = torch.round(xg)
+    iy = torch.round(yg)
+    inside = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    flat = torch.where(inside, torch.where(inside, ix, 0.0).long() * ny
+                       + torch.where(inside, iy, 0.0).long(), -1).numpy()
+    gf = g.float()
+    dg = torch.zeros(b, nx * ny, nz, c, dtype=torch.float32)
+    for bi in range(b):
+        for z in range(nz):
+            for v0 in range(0, nx * ny, band):
+                nvb = min(band, nx * ny - v0)
+                acc = torch.zeros(nvb, c, dtype=torch.float32)
+                for s in np.flatnonzero(iz == z):
+                    for p0 in range(0, npix, chunk):
+                        keys = flat[bi, s, p0:p0 + chunk] - v0
+                        keys = np.where((keys >= 0) & (keys < nvb), keys, -1)
+                        start, size, entries = reproject_buckets(keys, nvb,
+                                                                 warps)
+                        for r in range(int(size.max(initial=0))):
+                            has = np.flatnonzero(size > r)
+                            rows = gf[bi, s, p0 + entries[start[has] + r]]
+                            acc[has] = acc[has] + rows
+                dg[bi, v0:v0 + nvb, z] = acc
     return dg.reshape(b, nx, ny, nz, c).to(dtype)
 
 

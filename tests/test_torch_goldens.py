@@ -1,7 +1,9 @@
-"""The port against the executed reference's multi-view goldens: the add,
-ident and lstm3d fusions (tests/fixtures/golden_multiview_{add,ident,
-lstm3d}.npz, produced by running the reference's model_multi.py,
-tools/gen_multiview_golden.py) and the transformer fusion
+"""The port against the executed reference's multi-view goldens: the
+conv3d fusion (tests/fixtures/golden_multiview.npz, the main path, which
+runs through the reprojection), the add, ident and lstm3d fusions
+(golden_multiview_{add,ident,lstm3d}.npz; all four produced by running
+the reference's model_multi.py, tools/gen_multiview_golden.py) and the
+transformer fusion
 (golden_transformer.npz, model_transformer.py, tools/
 gen_transformer_golden.py). 2 views at 640^2, float32, on the CPU.
 
@@ -69,7 +71,8 @@ def _golden(case):
     return (build_config(case), *fixture_paths(case), GOLDEN_MV["seed"])
 
 
-@pytest.mark.parametrize("case", ["add", "ident", "lstm3d", "transformer"])
+@pytest.mark.parametrize("case", ["add", "ident", "lstm3d", "transformer",
+                                  "conv3d"])
 def test_port_matches_executed_reference_golden(case, tmp_path):
     cfg, fixture, inventory_path, seed = _golden(case)
     fx = np.load(fixture)

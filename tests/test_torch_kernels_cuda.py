@@ -451,3 +451,89 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         reproject.gather_bwd(torch.zeros(1, 2, 4, 4, device=dev), gxy, gxy,
                              np.array([0, 1]), (1, 2, 2, 2, 8))
+
+
+# ---------------------------------------------------------------------------
+# the reprojection kernels' variants (csrc/reproject.cu): the flagship
+# shapes (B=1, 40^3 grid, C=64, 20 samples, P4/P5/P6 = 40^2/20^2/10^2
+# pixels), a chunked map (80^2 pixels a sample), C=6 and offset tensors;
+# the backward against the plain version on a CPU copy, exactly
+# ---------------------------------------------------------------------------
+
+class _Flagship:
+    """The flagship grid config's reprojection geometry (chip_smoke.py's
+    FlagshipConfig: 40^3 voxels over [-2.5, 2.5]^2 x [1, 10] m, 20
+    samples)."""
+    nvox = nvox_z = 40
+    vmin, vmax = -2.5, 2.5
+    vmin_z, vmax_z = 1.0, 10.0
+    vsize_z = (vmax_z - vmin_z) / nvox_z
+    samples = 20
+
+
+def _reproject_case(dev, dtype, s, c=64, offset=0, seed=0):
+    """Coordinates of an s x s ray map from a 640^2 camera looking into
+    the flagship grid, and a grid and a g of `dtype`, both `offset`
+    elements past their allocations."""
+    cfg = _Flagship()
+    kmat = torch.tensor([[[576.0, 0, 320], [0, 576.0, 320], [0, 0, 1]]],
+                        device=dev)
+    xg, yg, iz = P.reprojection_coords(kmat, (640, 640), s, cfg.samples, cfg,
+                                       40, 40, 40)
+    gen = torch.Generator().manual_seed(seed)
+    shape = (1, 40, 40, 40, c)
+    grid = _offset(torch.randn(*shape, generator=gen).to(dtype), offset, dev)
+    g = _offset(torch.randn(1, cfg.samples, s * s, c, generator=gen).to(
+        dtype), offset, dev)
+    return grid, xg.contiguous(), yg.contiguous(), iz, g, shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,c,offset,fwd,bwd", [
+    (40, 64, 0, "fwd_vector", "bwd_vector"),
+    (20, 64, 0, "fwd_vector", "bwd_vector"),
+    (10, 64, 0, "fwd_vector", "bwd_vector"),
+    (40, 64, 1, "fwd_scalar", "bwd_scalar"),
+    (40, 6, 0, "fwd_scalar", "bwd_scalar"),
+    (80, 64, 0, "fwd_vector", "bwd_vector_chunked"),
+    (80, 64, 1, "fwd_scalar", "bwd_scalar_chunked"),
+])
+def test_reproject_variants_match_plain(dev, dtype, s, c, offset, fwd, bwd):
+    """Each variant of both kernels: the forward equal to the plain
+    version, the backward equal to the plain version computed on a CPU
+    copy (both add each voxel's rows in ascending order from 0), and to
+    itself on a second run."""
+    grid, xg, yg, iz, g, shape = _reproject_case(dev, dtype, s, c, offset,
+                                                 seed=s + c + offset)
+    reproject.variants.clear()
+    out = reproject.gather(grid, xg, yg, iz)
+    assert torch.equal(out, P.zslice_gather(grid, xg, yg, iz))
+    got = reproject.gather_bwd(g, xg, yg, iz, shape)
+    again = reproject.gather_bwd(g, xg, yg, iz, shape)
+    torch.cuda.synchronize()
+    assert dict(reproject.variants) == {fwd: 1, bwd: 2}
+    want = P.zslice_gather_bwd(g.cpu(), xg.cpu(), yg.cpu(), iz, shape, dtype)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+    assert bool(want.float().abs().max() > 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("iz", [(0, 2, 2, -1), (-1, -1, -1, -1),
+                                (39, 39, 0, -1), (5, 0, 5, 5)])
+def test_reproject_bwd_shared_and_invalid_slices(dev, dtype, iz):
+    """Samples sharing a slice (in order or not), every sample invalid,
+    NaN coordinates: exact against the plain version on a CPU copy, and
+    slices no sample reads are zero."""
+    grid, xg, yg, _, g, shape = _reproject_case(dev, dtype, 40, seed=3)
+    s_d = len(iz)
+    xg, yg = xg[:, :s_d].contiguous(), yg[:, :s_d].contiguous()
+    xg[:, :, :40] = float("nan")
+    g = g[:, :s_d].contiguous()
+    iz = np.asarray(iz)
+    got = reproject.gather_bwd(g, xg, yg, iz, shape)
+    want = P.zslice_gather_bwd(g.cpu(), xg.cpu(), yg.cpu(), iz, shape, dtype)
+    assert torch.equal(got.cpu(), want)
+    for z in range(40):
+        if z not in iz:
+            assert not bool(got[..., z, :].any()), z

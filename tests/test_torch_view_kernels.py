@@ -221,7 +221,7 @@ def test_view_bwd_plan_covers_every_voxel_and_channel():
 
 def test_plans_mirror_the_cuda_source():
     """THREADS is the sources' kThreads, the forward's 16-byte groups hold
-    4 float32 or 8 bfloat16 channels, as csrc/unproject.cu's Vec16, a walk
+    4 float32 or 8 bfloat16 channels, as csrc/common.cuh's Vec16, a walk
     thread owns WALK_VEC channels, and the source has one forward and one
     backward entry point, which serve both layouts."""
     common = (CSRC / "common.cuh").read_text()
@@ -231,7 +231,7 @@ def test_plans_mirror_the_cuda_source():
     for dtype, bits in ((torch.float32, "float"),
                         (torch.bfloat16, "__nv_bfloat16")):
         assert re.search(rf"struct Vec16<{bits}> {{\n  static constexpr int "
-                         rf"kN = {U._vec(dtype)};", src)
+                         rf"kN = {U._vec(dtype)};", common)
     assert U.WALK_VEC == 4 and "__device__ __forceinline__ void load4(" in src
     assert re.search(rf"constexpr int kWalkVec = {U.WALK_VEC};", src)
     assert sorted(re.findall(r'extern "C" int (\w+)\(', src)) == [

@@ -1,5 +1,6 @@
 """Time the PyTorch port's geometry kernels in this tree and in an older
-checkout of it, on one card, through each tree's own wrappers.
+checkout of it, on one card, through each tree's own wrappers, and count
+each tree's host synchronisations in a conv3d request.
 
     python3 tools/torch_kernel_ab.py OLD_TREE [--rounds 2]
 
@@ -16,7 +17,11 @@ and times every kernel case that tree's `chip_smoke.py` defines
 `device_ms` (20 calls queued behind a spinning kernel, CUDA events) — the
 phase-3 numbers, without the checks. Turns run old, new, new, old,
 `--rounds` times. Prints one line per kernel, level and dtype with the
-times and the ratio of the medians (new / old). Needs a CUDA device.
+times and the ratio of the medians (new / old). The first round's turns
+also run that tree's engine (`chip_smoke.py`'s FlagshipConfig, seeded
+weights, one warm-up request) on one detect request under
+torch.profiler and count its host synchronisations (`host_syncs`): one
+line per tree. Needs a CUDA device.
 """
 
 import argparse
@@ -29,11 +34,44 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 MARK = "KERNEL_AB "
+SYNCS = "host_syncs conv3d request"
 
 
-def child(tree):
-    """Time the phase-3 kernel cases of the tree at `tree`; print them as
-    one JSON line after MARK."""
+def host_syncs(fn):
+    """The CUDA runtime calls of one call of fn that make the host wait
+    for the card (torch.profiler's record of cudaStreamSynchronize,
+    cudaDeviceSynchronize, cudaEventSynchronize and the synchronous
+    cudaMemcpy): {name: count}."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.endswith("Synchronize") or e.key == "cudaMemcpy"}
+
+
+def request_syncs(cs):
+    """host_syncs of one conv3d detect request of the tree whose
+    chip_smoke module is `cs`, after one warm-up request."""
+    import numpy as np
+    import torch
+    cfg = cs.FlagshipConfig()
+    eng = cs.MaskRCNN("inference", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    img = cs.request_images(rng, 1, cfg.IMAGE_MAX_DIM, cfg.NUM_VIEWS)
+    rcam = cs.poses(rng, 1, cfg.NUM_VIEWS)
+    kmat = cs.intrinsics(1, cfg.IMAGE_MAX_DIM)
+    eng.detect(img, rcam, kmat)
+    return host_syncs(lambda: eng.detect(img, rcam, kmat))
+
+
+def child(tree, syncs=False):
+    """Time the phase-3 kernel cases of the tree at `tree` (and, with
+    `syncs`, count the host synchronisations of its conv3d request);
+    print them as one JSON line after MARK."""
     sys.path.insert(0, str(tree))
     os.chdir(tree)
     import numpy as np
@@ -76,14 +114,18 @@ def child(tree):
             for name, case in cases.items():
                 key = f"{name} {level} {str(dtype).split('.')[1]}"
                 out[key] = cs.device_ms(case[0])
+    if syncs:
+        out[SYNCS] = request_syncs(cs)
     print(MARK + json.dumps(out), flush=True)
 
 
-def turn(tree):
-    """One child process on `tree`: {kernel level dtype: ms}."""
+def turn(tree, syncs=False):
+    """One child process on `tree`: {kernel level dtype: ms}, and with
+    `syncs` {SYNCS: {runtime call: count}}."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--child",
-         str(tree)], capture_output=True, text=True, check=False)
+         str(tree)] + (["--syncs"] if syncs else []), capture_output=True,
+        text=True, check=False)
     for line in proc.stdout.splitlines():
         if line.startswith(MARK):
             return json.loads(line[len(MARK):])
@@ -96,16 +138,21 @@ def main():
     ap.add_argument("old_tree", nargs="?")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--syncs", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(Path(args.child).resolve())
+        child(Path(args.child).resolve(), args.syncs)
         return
     if not args.old_tree:
         ap.error("OLD_TREE is required")
     trees = {"old": Path(args.old_tree).resolve(), "new": ROOT}
     times = {"old": [], "new": []}
-    for tag in ("old", "new", "new", "old") * args.rounds:
-        times[tag].append(turn(trees[tag]))
+    for i, tag in enumerate(("old", "new", "new", "old") * args.rounds):
+        times[tag].append(turn(trees[tag], syncs=i < 4))
+    for tag in ("old", "new"):
+        counts = [t.pop(SYNCS) for t in times[tag] if SYNCS in t]
+        print(SYNCS, tag, [sum(c.values()) for c in counts],
+              json.dumps(counts[0]), flush=True)
     for key in times["new"][0]:
         if key not in times["old"][0]:
             continue
