@@ -93,13 +93,38 @@ Phases, one line each (any failure exits non-zero):
                XFORMER_* defaults) with seeded depths: 3 detect requests
                and 3 training steps (dropout 0.1 from the engine's
                generator); no geometry kernel launches.
+ 11. cli     — the InteriorNet command line (cli/interior_multi.py) at its
+               own flagship config (2 views at 640^2, ResNet-50 with the
+               5-block stage 4, pyramid 64, conv3d on a 40^3 grid, 20
+               samples, bfloat16; STEPS_PER_EPOCH=2, VALIDATION_STEPS=1):
+               the port's exporter writes a synthetic HD7 tree (3 train and
+               2 val scenes of 8 views at 640^2, focal 600, so the
+               hard-coded InteriorNet K holds) under build/; `train
+               --epochs 1,2,3 --save-every 1` runs as a subprocess, killed
+               with SIGKILL once epoch 1's checkpoint is on disk; the same
+               command with --model last then resumes in this process
+               (main()), skipping the finished stages, to epoch 3: one
+               metrics.jsonl line and one tfevents scalar event per epoch
+               run, finite losses; then `evaluate --model last --limit 2`
+               prints a finite mAP@50 in [0, 1]. The resumed run must
+               launch the fused unprojection and the reprojection, forward
+               and backward (3 levels a step, forwards in the validation
+               step too), the evaluation both forwards, all in the main
+               paths' variants, on an engine whose weights are all on the
+               card. One JSON line: the step times, each key's evaluate
+               time and the launches.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -114,7 +139,11 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from mulit_view_object_detection_torch.cli import interior_multi as cli  # noqa: E402
+from mulit_view_object_detection_torch.cli.export_synthetic_interiornet import (  # noqa: E402
+    export_subset)
 from mulit_view_object_detection_torch.compat import MaskRCNN  # noqa: E402
+from mulit_view_object_detection_torch.compat import model as engine  # noqa: E402
 from mulit_view_object_detection_torch.config import Config  # noqa: E402
 from mulit_view_object_detection_torch.data.generator import (  # noqa: E402
     make_batch)
@@ -129,9 +158,12 @@ from mulit_view_object_detection_torch.train.step import (  # noqa: E402
     draw_priorities, loss_and_grads, train_step)
 from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
     trainable_mask)
+from mulit_view_object_detection_torch.utils.logging_utils import (  # noqa: E402
+    read_tb_events)
 from tools.torch_kernel_ab import host_syncs  # noqa: E402
 
 DEV = torch.device("cuda", 0)
+ROOT = os.path.dirname(os.path.abspath(__file__))
 LEVELS = {"P4": 40, "P5": 20, "P6": 10}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12                 # outside the tensor cores (the kernels'
@@ -1207,6 +1239,169 @@ def phase_xformer():
             run_training("xformer_train", XformerTrainConfig(), {}))
 
 
+def _step_clock(times):
+    """Wrap the engine's train_step to append each step's host time in ms
+    (the step ends in a copy of its losses to the host); returns the
+    original, to put back."""
+    original = engine.train_step
+
+    def timed_step(*args, **kwargs):
+        t = time.perf_counter()
+        out = original(*args, **kwargs)
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+    engine.train_step = timed_step
+    return original
+
+
+def _epoch_records(log_dir, after):
+    """(metrics.jsonl steps, tfevents steps) of `log_dir` past epoch
+    `after`, each loss finite."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    events = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "events.out.*"))):
+        events += read_tb_events(path)
+    for rec in recs:
+        if not all(np.isfinite(v) for k, v in rec.items() if "loss" in k):
+            raise RuntimeError(f"cli: a logged loss is not finite: {rec}")
+    for _, scalars in events:
+        if not all(np.isfinite(v) for v in scalars.values()):
+            raise RuntimeError(f"cli: an event is not finite: {scalars}")
+    return ([r["step"] for r in recs if r["step"] > after],
+            [s for s, _ in events if s > after])
+
+
+def _cli(argv, log):
+    """cli.main(argv) in this process, its standard output appended to
+    `log`; returns (its result, that output)."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = cli.main(argv)
+    finally:
+        log.write(out.getvalue())
+    return result, out.getvalue()
+
+
+def phase_cli():
+    """The InteriorNet command line at 640²: export a tree, train in a
+    subprocess and SIGKILL it after epoch 1's checkpoint, resume in this
+    process to epoch 3, evaluate 2 keys. Returns the launch counts of the
+    resumed training and of the evaluation."""
+    steps, val_steps, epochs, image_size = 2, 1, 3, 640
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        t = time.perf_counter()
+        export_subset(work, "train", 3, seed=21, image_size=image_size,
+                      num_views=8)
+        export_subset(work, "val", 2, seed=521, image_size=image_size,
+                      num_views=8)
+        export_s = time.perf_counter() - t
+        common = ["--dataset", os.path.join(work, "HD7"), "--logs",
+                  os.path.join(work, "logs"), "--device", "cuda",
+                  "--overrides",
+                  f"STEPS_PER_EPOCH={steps},VALIDATION_STEPS={val_steps}"]
+        train = ["train", *common, "--epochs", f"1,2,{epochs}",
+                 "--save-every", "1"]
+        log = open(os.path.join(work, "cli.log"), "w")
+        first = os.path.join(work, "logs", "*", "checkpoints", "1",
+                             "state.pt")
+        try:
+            t = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "mulit_view_object_detection_torch.cli.interior_multi",
+                 *train], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+            try:
+                while not glob.glob(first):
+                    if proc.poll() is not None:
+                        raise RuntimeError(
+                            f"cli: the training subprocess exited with "
+                            f"{proc.returncode} before epoch 1's checkpoint")
+                    if time.perf_counter() - t > 600:
+                        raise RuntimeError("cli: no epoch-1 checkpoint in "
+                                           "600 s")
+                    time.sleep(0.1)
+                first_ckpt_s = time.perf_counter() - t
+            finally:
+                proc.kill()                                # SIGKILL
+                proc.wait()
+            killed = max(int(p.split(os.sep)[-2]) for p in glob.glob(
+                os.path.join(work, "logs", "*", "checkpoints", "*",
+                             "state.pt")))
+
+            step_ms = []
+            original = _step_clock(step_ms)
+            reset_counts()
+            try:
+                eng, out = _cli([*train, "--model", "last"], log)
+            finally:
+                engine.train_step = original
+            train_launches = read_counts()
+            ran = list(range(killed + 1, epochs + 1))
+            logged = _epoch_records(eng.log_dir, killed)
+            if eng.epoch != epochs or logged != (ran, ran):
+                raise RuntimeError(
+                    f"cli: resumed from epoch {killed} to {eng.epoch}, "
+                    f"logged (jsonl, tfevents) {logged}, not {ran}")
+            if "epoch 1:" in out or len(step_ms) != steps * len(ran):
+                raise RuntimeError(
+                    f"cli: the resume ran a finished stage ({len(step_ms)} "
+                    f"steps for epochs {ran})")
+            bad = [n for n, p in eng.model.named_parameters()
+                   if p.device.type != "cuda"]
+            if bad:
+                raise RuntimeError(f"cli: parameters off the card: {bad[:3]}")
+            n = 3 * len(ran)
+            want = expected(unproject=n * (steps + val_steps),
+                            reproject=n * (steps + val_steps),
+                            unproject_bwd=n * steps, reproject_bwd=n * steps)
+            variants = check_variants("cli_train", train_launches)
+            if train_launches != want:
+                raise RuntimeError(
+                    f"cli train launches {train_launches} != {want}")
+            del eng
+
+            reset_counts()
+            t = time.perf_counter()
+            mean_ap, out = _cli(["evaluate", *common, "--model", "last",
+                                 "--limit", "2"], log)
+            torch.cuda.synchronize()
+            evaluate_s = time.perf_counter() - t
+            eval_launches = read_counts()
+            key_ms = [float(m) for m in re.findall(r" ms=([0-9.]+)", out)]
+            printed = re.findall(r"^mAP@50: ([0-9.naif]+)$", out, re.M)
+            if (len(key_ms) != 2 or printed != [f"{mean_ap:.4f}"]
+                    or not 0.0 <= mean_ap <= 1.0):
+                raise RuntimeError(f"cli evaluate printed {printed}, keys "
+                                   f"{key_ms}, mAP {mean_ap}")
+            want_eval = expected(unproject=3 * 2, reproject=3 * 2)
+            check_variants("cli_evaluate", eval_launches)
+            if eval_launches != want_eval:
+                raise RuntimeError(
+                    f"cli evaluate launches {eval_launches} != {want_eval}")
+        except Exception:
+            log.flush()
+            with open(log.name) as f:
+                print(f.read()[-6000:], flush=True)
+            raise
+        finally:
+            log.close()
+    print(json.dumps({
+        "phase": "cli", "image_size": image_size,
+        "export_s": round(export_s, 3),
+        "subprocess_first_checkpoint_s": round(first_ckpt_s, 3),
+        "killed_after_epoch": killed, "resumed_epochs": ran,
+        "train_step_ms": [round(x, 3) for x in step_ms],
+        "train_step_ms_median": round(statistics.median(step_ms), 3),
+        "evaluate_ms_per_key": key_ms, "evaluate_s": round(evaluate_s, 3),
+        "mAP@50": mean_ap, "train_launches": train_launches,
+        "train_variants": variants, "evaluate_launches": eval_launches}),
+        flush=True)
+    return train_launches, eval_launches
+
+
 def _iou(a, b):
     lo = np.maximum(a[:2], b[:2])
     hi = np.minimum(a[2:], b[2:])
@@ -1359,6 +1554,7 @@ def main():
     paths["lstm3d_inference"] = phase_lstm_main()
     paths["lstm3d_train"] = phase_lstm_train()
     paths["xformer_inference"], paths["xformer_train"] = phase_xformer()
+    paths["cli_train"], paths["cli_evaluate"] = phase_cli()
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

@@ -5,12 +5,13 @@ Port of `mulit_view_object_detection_tpu/compat/model.py`:
 `MaskRCNN(mode, config, model_dir, device="cuda")` with `detect(images,
 Rcam, Kmat, depths)`, `mold_inputs` / `unmold_detections` (the JAX engine's
 contract; molding from the port's numpy copy `data/molding.py`),
-`train(...)`, `save_weights` / `load_weights` (checkpoint directories),
-`find_last` and `set_log_dir`. The engine runs on the card unless the
-caller asks for the CPU. Weights start from flax's initialisation scheme
-drawn from seed 0 (the JAX engine starts from PRNGKey(0)), and can come
-from the JAX package's flax variables (`load_flax_variables`) or a seeded
-`init_weights`.
+`train(...)` (with per-epoch JSONL and TensorBoard scalars in `log_dir`),
+`save_weights` / `load_weights` (checkpoint directories, and Keras .h5
+files by layer name), `find_last` and `set_log_dir`. The engine runs on
+the card unless the caller asks for the CPU. Weights start from flax's
+initialisation scheme drawn from seed 0 (the JAX engine starts from
+PRNGKey(0)), and can come from the JAX package's flax variables
+(`load_flax_variables`) or a seeded `init_weights`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..train.optim import make_optimizer
 from ..train.step import train_step, val_step
 from ..train.trainable import trainable_mask
 from ..utils.convert import flax_to_torch
+from ..utils.logging_utils import MetricsLogger, TBEventWriter
 
 log = logging.getLogger(__name__)
 
@@ -87,14 +89,25 @@ class MaskRCNN:
         return self
 
     def load_weights(self, filepath, by_name=True, exclude=None):
-        """Load a checkpoint directory written by `save_weights` or
-        `train` (its latest step), and resume the epoch count from it,
-        as the reference's load_weights does (model_multi.py:2642).
-        `exclude` keeps the current weights of those top-level modules.
-        Keras .h5 files are not ported yet."""
+        """Load a Keras `.h5` file or a checkpoint directory.
+
+        An h5 file merges by layer name (the reference's
+        model.load_weights("mask_rcnn_coco.h5", by_name=True,
+        exclude=[...]), model.py:2102-2144): `exclude` lists keras layer
+        names, inner or saved, whose weights stay as they are; the
+        importer's report (loaded, skipped, excluded layers) is kept in
+        `last_h5_report`, and the epoch count is untouched.
+
+        A checkpoint directory written by `save_weights` or `train` loads
+        its latest step and resumes the epoch count from it, as the
+        reference's load_weights does (model_multi.py:2642); there
+        `exclude` keeps the current weights of those top-level modules."""
         if str(filepath).endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                "loading Keras .h5 weights is not ported to PyTorch yet")
+            from ..utils.h5_import import load_h5_state_dict
+            state, self.last_h5_report = load_h5_state_dict(
+                filepath, self.model.state_dict(), exclude=exclude)
+            self.model.load_state_dict(state, strict=True)
+            return self
         keep = {k: v.clone() for k, v in self.model.state_dict().items()
                 if exclude and k.split(".", 1)[0] in exclude}
         if restore_checkpoint(filepath, self.model) is None:
@@ -283,7 +296,10 @@ class MaskRCNN:
         and after the last. `augmentation` is a callable (image, mask,
         rng) -> (image, mask), see data.augment. With TRANSFORMER the
         batches carry depth maps, and the transformer's dropout draws from
-        the engine's sampling generator. Prints one line per epoch."""
+        the engine's sampling generator. Each epoch's mean metrics go to
+        `log_dir`: a line of `metrics.jsonl` and a TensorBoard scalar
+        event at step epoch + 1, as in the JAX engine, and a printed
+        line."""
         if self.mode != "training":
             raise ValueError("create the engine in training mode to train")
         cfg = self.config
@@ -301,6 +317,8 @@ class MaskRCNN:
                                     augmentation=augmentation),
             num_threads=prefetch_threads)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
+        jsonl = MetricsLogger(self.log_dir)
+        tb = TBEventWriter(self.log_dir)
         try:
             for epoch in range(self.epoch, epochs):
                 acc = {}
@@ -326,6 +344,8 @@ class MaskRCNN:
                 print(f"epoch {epoch + 1}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in sorted(means.items())),
                     flush=True)
+                jsonl.log(epoch + 1, **means)
+                tb.add_scalars(epoch + 1, means)
                 if (epoch + 1) % save_every_epochs == 0 or epoch + 1 == epochs:
                     save_checkpoint(self.checkpoint_dir, model, optimizer,
                                     step=epoch + 1)
@@ -334,4 +354,6 @@ class MaskRCNN:
                         cb(epoch + 1, means)
         finally:
             prefetcher.close()
+            jsonl.close()
+            tb.close()
         self.epoch = max(self.epoch, epochs)

@@ -104,6 +104,19 @@ def compute_overlaps_np(boxes1, boxes2):
     return inter / union
 
 
+def compute_overlaps_masks_np(masks1, masks2):
+    """IoU between two mask stacks [H, W, N] via one flattened matmul
+    (utils.py:359-378)."""
+    n1, n2 = masks1.shape[-1], masks2.shape[-1]
+    if n1 == 0 or n2 == 0:
+        return np.zeros((n1, n2))
+    flat1 = (masks1 > 0.5).reshape(-1, n1).astype(np.float32)
+    flat2 = (masks2 > 0.5).reshape(-1, n2).astype(np.float32)
+    inter = flat1.T @ flat2
+    union = flat1.sum(0)[:, None] + flat2.sum(0)[None, :] - inter
+    return inter / np.maximum(union, 1e-10)
+
+
 def _box_geometry_np(boxes):
     """(centers [N, (cy, cx)], sizes [N, (h, w)]) of float32 boxes."""
     sizes = boxes[:, 2:4] - boxes[:, 0:2]

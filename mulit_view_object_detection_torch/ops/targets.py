@@ -12,8 +12,9 @@ Port of `mulit_view_object_detection_tpu/ops/targets.py`.
   packages the same numbers.
 * `build_rpn_targets` (model.py:1449-1557) labels anchors on the host in
   numpy and consumes the RandomState exactly as the JAX function does.
-  It matches anchors with the numpy matrix path, which the JAX package
-  keeps bit-identical to its C++ matcher (native/maskops.cpp).
+  It matches anchors with the C++ matcher of native/maskops.cpp
+  (data/native.py), as the JAX package does; the numpy matrix path is its
+  plain version, bit-identical.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .boxes import (box_refinement, box_refinement_np, compute_overlaps_np,
-                    overlaps)
+from ..data.native import MAX_NATIVE_GT, anchor_gt_match, anchor_gt_match_np
+from .boxes import box_refinement, box_refinement_np, overlaps
 from .roi_align import crop_and_resize
 
 _NEG_INF = -1e9
@@ -129,12 +130,12 @@ def detection_targets_batch(proposals, gt_class_ids, gt_boxes, gt_masks,
 
 def _match_anchors(anchors, gt_boxes):
     """(best_gt [A], best_iou [A], forced [A] bool): per-anchor argmax and
-    max IoU, and the anchors that some GT overlaps best (ties included)."""
-    iou = compute_overlaps_np(anchors, gt_boxes)
-    best_gt = iou.argmax(axis=1)
-    best_iou = iou[np.arange(anchors.shape[0]), best_gt]
-    forced = (iou == iou.max(axis=0)).any(axis=1)
-    return best_gt, best_iou, forced
+    max IoU, and the anchors that some GT overlaps best (ties included).
+    The C++ matcher takes up to MAX_NATIVE_GT boxes; more go through the
+    numpy matrix, as in the JAX package (the two are bit-identical)."""
+    if gt_boxes.shape[0] > MAX_NATIVE_GT:
+        return anchor_gt_match_np(anchors, gt_boxes)
+    return anchor_gt_match(anchors, gt_boxes)
 
 
 def _demote_excess(labels, value, budget, rnd):
