@@ -113,6 +113,43 @@ Phases, one line each (any failure exits non-zero):
                paths' variants, on an engine whose weights are all on the
                card. One JSON line: the step times, each key's evaluate
                time and the launches.
+ 12. serve   — the serving path (cli/serve.py's and cli/serve_bench.py's
+               config: the flagship at bfloat16 with FOLD_BN, here with
+               UINT8_IMAGE_TRANSFER on, batch 4). First the fused
+               unprojection forward and the reprojection forward at B = 4,
+               at P4, P5 and P6, each scene with its own poses and focal
+               length, in float32 (TF32 off) and bfloat16, against plain
+               at phase 3's tolerance and timed as phase 3 times them.
+               Then, in float32 at the parity phase's 256^2 with mildly
+               randomised BN statistics, 4 scenes through the MicroBatcher
+               to a folded, uint8, batch-4 GPU engine against a batch-1,
+               unfolded, float-molded CPU engine, each at the parity bar.
+               Then the flagship at 640^2 (BN statistics mildly
+               randomised too): the fold in bfloat16 against a float32
+               unfolded engine with the same weights (the fused pyramid,
+               the RPN outputs, and both heads on the reference's maps and
+               proposals: the folded engine's relative error at most
+               FOLD_NOISE times the unfolded bfloat16 engine's; printed
+               beside it, how few detections bfloat16 rounding alone
+               leaves matched; then the folded copy with one BN's fold
+               undone, for a conv of the backbone, a U-Net and the mask
+               head in turn, must fail that bar); the
+               MicroBatcher's results equal a direct detect of the same 4
+               scenes (class ids, boxes and scores within 1e-5); 16 POSTs
+               from 4 client threads through the stdlib HTTP server
+               (serve/http_server.py) on localhost, all resolved with
+               640^2 masks and finite scores, /stats counting 16 in at
+               least 4 batches, /healthz ok, 3 fused unprojection and 3
+               reprojection forwards a batch in their vector variants and
+               nothing else; the device events of one profiled forward
+               unfolded and folded (each BN's two kernels and one device
+               copy gone, no BN kernel left); serve_bench's requests/s,
+               mean latency and detections a request at batch 1 and 4 (32
+               requests, at the tool's 0.7 confidence threshold); one
+               batch's host breakdown (at threshold 0.0: 100 masks a
+               scene), the uint8 upload's bytes against float32's, the
+               folded copy's size and the peak device memory. One JSON
+               line {"phase": "serve", ...}.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -122,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import glob
 import io
+import itertools
 import json
 import os
 import re
@@ -129,7 +167,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from urllib.request import urlopen
 
 import numpy as np
 import torch
@@ -140,6 +180,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from mulit_view_object_detection_torch.cli import interior_multi as cli  # noqa: E402
+from mulit_view_object_detection_torch.cli import serve_bench  # noqa: E402
 from mulit_view_object_detection_torch.cli.export_synthetic_interiornet import (  # noqa: E402
     export_subset)
 from mulit_view_object_detection_torch.compat import MaskRCNN  # noqa: E402
@@ -151,13 +192,20 @@ from mulit_view_object_detection_torch.data.synthetic import (  # noqa: E402
     SyntheticMultiViewDataset)
 from mulit_view_object_detection_torch.kernels import (  # noqa: E402
     build, reproject, unproject)
+from mulit_view_object_detection_torch.models.resnet import BatchNorm  # noqa: E402
 from mulit_view_object_detection_torch.ops import projection as plain  # noqa: E402
+from mulit_view_object_detection_torch.ops.roi_align import (  # noqa: E402
+    pyramid_roi_align)
+from mulit_view_object_detection_torch.serve import (  # noqa: E402
+    MicroBatcher, detect_remote, make_server)
 from mulit_view_object_detection_torch.train.optim import (  # noqa: E402
     make_optimizer)
 from mulit_view_object_detection_torch.train.step import (  # noqa: E402
     draw_priorities, loss_and_grads, train_step)
 from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
     trainable_mask)
+from mulit_view_object_detection_torch.utils.convert import (  # noqa: E402
+    bn_module_names)
 from mulit_view_object_detection_torch.utils.logging_utils import (  # noqa: E402
     read_tb_events)
 from tools.torch_kernel_ab import host_syncs  # noqa: E402
@@ -761,11 +809,12 @@ def _reproject_variant_checks(kmat, gen, dtype):
     return out
 
 
-def measure(name, case, level, dtype, views, adds, outside):
+def measure(name, case, level, dtype, views, adds, outside, phase="kernels"):
     """Kernel `name` at one level against its plain version (the
     tolerance, the variant launched), then the device times of the
     kernel, the plain version and the library call, the host-clock call
-    times and the bound; prints one line and returns its numbers."""
+    times and the bound; prints one line (tagged `phase`) and returns its
+    numbers."""
     kern, ref, lib, nbytes, flops, *exact = case
     got, variant = launched_variant(name, kern)
     want = exact[0]() if exact else ref()
@@ -792,7 +841,7 @@ def measure(name, case, level, dtype, views, adds, outside):
     if name.startswith("unproject"):
         extra.update(adds_per_pixel_max=adds[0],
                      adds_per_pixel_mean=round(adds[1], 2))
-    say("kernels", kernel=name, level=level, views=views,
+    say(phase, kernel=name, level=level, views=views,
         dtype=str(dtype).split(".")[1], shape=list(got.shape),
         max_abs_err=err, tol=tol, run_to_run=spread,
         ms=round(ms, 5), plain_ms=round(plain_ms, 5),
@@ -1434,6 +1483,18 @@ def phase_parity(cfg):
         .init_weights(torch.Generator().manual_seed(3))
         .detect([img], rcam, kmat, depths)[0]
         for dev in ("cpu", "cuda")]
+    n_ref, n_got, matched, worst_score, worst_mask = match_detections(
+        ref, got)
+    say("parity", config=cfg.NAME, cpu_detections=n_ref,
+        gpu_detections=n_got, matched=matched, max_score_diff=worst_score,
+        min_mask_iou=round(float(worst_mask), 4))
+    check_parity(cfg.NAME, n_ref, n_got, matched, worst_score, worst_mask)
+
+
+def match_detections(ref, got):
+    """(reference count, count, matched, largest score difference,
+    smallest mask IoU): each reference detection matched greedily to the
+    unused detection of its class with the largest box IoU, if >= 0.9."""
     n_ref, n_got = len(ref["class_ids"]), len(got["class_ids"])
     used, matched, worst_score, worst_mask = set(), 0, 0.0, 1.0
     for i in range(n_ref):
@@ -1456,15 +1517,18 @@ def phase_parity(cfg):
         if union:
             worst_mask = min(worst_mask,
                              np.logical_and(a, b).sum() / union)
-    say("parity", config=cfg.NAME, cpu_detections=n_ref,
-        gpu_detections=n_got, matched=matched, max_score_diff=worst_score,
-        min_mask_iou=round(float(worst_mask), 4))
+    return n_ref, n_got, matched, worst_score, worst_mask
+
+
+def check_parity(tag, n_ref, n_got, matched, worst_score, worst_mask):
+    """The bar of tests/test_fullgraph_parity.py on match_detections'
+    numbers; a reference with no detection compares nothing: an error."""
     if n_ref == 0:
-        raise RuntimeError(f"{cfg.NAME} parity run produced no detections "
-                           f"to compare")
+        raise RuntimeError(f"{tag} parity run produced no detections to "
+                           f"compare")
     if (abs(n_ref - n_got) > 1 or matched < n_ref - 1
             or worst_score >= 0.02 or worst_mask <= 0.85):
-        raise RuntimeError(f"{cfg.NAME}: CPU and GPU detections disagree")
+        raise RuntimeError(f"{tag}: CPU and GPU detections disagree")
 
 
 def _grad_errs(ref, got, floor):
@@ -1536,6 +1600,497 @@ def phase_train_parity(cfg, kernels, stage="all"):
         raise RuntimeError(f"{cfg.NAME}: CPU and GPU train steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 4
+SERVE_SIZE = 640          # the flagship serving image
+SERVE_REQUESTS = 32       # each serve_bench run
+HTTP_REQUESTS = 16        # from 4 client threads
+DTOD = "Memcpy DtoD (Device -> Device)"
+FOLD_NOISE = 1.5          # serve_fold_check's bar, in units of bf16 rounding
+
+
+class Serve256(Flagship256):
+    """The parity phase's 256^2 float32 model served: BatchNorms folded,
+    uint8 images de-molded on the card, batches of 4."""
+    NAME = "serve_256"
+    FOLD_BN = True
+    UINT8_IMAGE_TRANSFER = True
+    IMAGES_PER_GPU = SERVE_BATCH
+
+
+def serve_config():
+    """cli/serve_bench.py's config (the flagship at bfloat16 with FOLD_BN,
+    batch 4) with the uint8 image transfer on and detections kept at any
+    confidence (random weights score below the tool's 0.7)."""
+    cfg = serve_bench.build_config(SERVE_BATCH, SERVE_SIZE)
+    cfg.UINT8_IMAGE_TRANSFER = True
+    cfg.DETECTION_MIN_CONFIDENCE = 0.0
+    return cfg
+
+
+def serve_kernels(record):
+    """The two forwards of the serving path at B = 4 and each level the
+    path gives them (P4, P5, P6): the fused unprojection (2 views) and
+    the reprojection, each scene with its own poses and focal length,
+    against the plain versions (phase 3's tolerance) and timed as phase 3
+    times them; the bfloat16 numbers join the kernels' record as
+    "bf16_b4_p4", "bf16_b4_p5" and "bf16_b4_p6"."""
+    cfg = FlagshipConfig()
+    b, v, c, n = SERVE_BATCH, 2, 64, cfg.nvox
+    rng = np.random.RandomState(4)
+    gen = torch.Generator().manual_seed(4)
+    rcam = torch.from_numpy(poses(rng, b, v)).to(DEV)
+    kmat = intrinsics(b, 640)
+    kmat[:, 0, 0] *= 1 + 0.05 * np.arange(b)
+    kmat[:, 1, 1] = kmat[:, 0, 0]
+    kmat = torch.from_numpy(kmat).to(DEV)
+    pts = torch.from_numpy(plain.voxel_grid_points(cfg)).to(DEV)
+    out = {}
+    for level, s in LEVELS.items():
+        x, y = plain.project_voxel_coords(rcam, kmat, (640, 640), pts, s, s)
+        x, y = x.contiguous(), y.contiguous()
+        xg, yg, iz = plain.reprojection_coords(kmat, (640, 640), s,
+                                               cfg.samples, cfg, n, n, n)
+        xg, yg = xg.contiguous(), yg.contiguous()
+        outside = float(((x[1::2] < -1) | (x[1::2] > s) | (y[1::2] < -1)
+                         | (y[1::2] > s)).float().mean())
+        adds = adds_per_pixel(x, y, s)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(b * v, s * s, c, generator=gen).to(DEV, dtype)
+            grid = torch.randn(b, n, n, n, c, generator=gen).to(DEV, dtype)
+            cases = (
+                ("unproject", _unproject_cases(feats, x, y, s, v, dtype), v),
+                ("reproject", _reproject_cases(grid, xg, yg, iz, dtype), 1))
+            for name, case, views in cases:
+                got = measure(name, case[name], level, dtype, views, adds,
+                              outside, phase="serve")
+                dt = str(dtype).split(".")[1]
+                out[f"{name}_{dt}_{level}"] = {k: got[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "library_ms")}
+                if dtype == torch.bfloat16:
+                    record[name][f"bf16_b4_{level.lower()}"] = {
+                        k: got[k] for k in ("ms", "bound_ms", "library_ms")}
+    return out
+
+
+def mildly_randomise_bns(model, seed):
+    """Every BatchNorm's scale and variance times U(0.8, 1.25), its bias
+    and mean plus N(0, 0.05^2), in place: folding then changes every
+    conv (with identity statistics it only divides by sqrt(1 + eps))."""
+    sd = model.state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in sorted(bn_module_names(sd)):
+            for leaf, spread in (("weight", 0), ("running_var", 0),
+                                 ("bias", 1), ("running_mean", 1)):
+                t = sd[f"{bn}.{leaf}"]
+                draw = (torch.randn(t.shape, generator=gen) * 0.05
+                        if spread else
+                        0.8 + 0.45 * torch.rand(t.shape, generator=gen))
+                (t.add_ if spread else t.mul_)(draw.to(t.device))
+    return sd
+
+
+def serve_parity():
+    """The fold and the batching in float32 (TF32 off): 4 different
+    scenes through the MicroBatcher to a GPU engine at Serve256 (folded,
+    uint8 transfer, one batch of 4) against a batch-1, unfolded,
+    float-molded CPU engine with the same weights, scene by scene, at
+    the parity phase's bar."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_eng = MaskRCNN("inference", Flagship256(), "build", device="cpu")
+    ref_eng.init_weights(torch.Generator().manual_seed(3))
+    weights = mildly_randomise_bns(ref_eng.model, seed=6)
+    eng = MaskRCNN("inference", Serve256(), "build")
+    eng.model.load_state_dict(weights)
+    rng = np.random.RandomState(5)
+    hw = Serve256.IMAGE_MAX_DIM
+    scenes = request_images(rng, SERVE_BATCH, hw)
+    rcams = [poses(rng, 1, 2) for _ in scenes]
+    kmat = intrinsics(1, hw)
+    with MicroBatcher(eng, batch_size=SERVE_BATCH,
+                      max_delay_ms=1000) as mb:
+        futures = [mb.submit(img, Rcam=r, Kmat=kmat)
+                   for img, r in zip(scenes, rcams)]
+        got = [f.result(timeout=600) for f in futures]
+        batches = mb.stats()["batches"]
+    if batches != 1:
+        raise RuntimeError(f"4 scenes took {batches} batches, not 1")
+    rows = []
+    for img, rcam, g in zip(scenes, rcams, got):
+        nums = match_detections(ref_eng.detect([img], rcam, kmat)[0], g)
+        check_parity(Serve256.NAME, *nums)
+        rows.append(dict(zip(("cpu_detections", "gpu_detections", "matched",
+                              "max_score_diff", "min_mask_iou"), nums)))
+    say("serve", step="fold_batch_parity", config=Serve256.NAME,
+        batches=batches, scenes=json.dumps(rows, separators=(",", ":")))
+    return rows
+
+
+def _same(direct, served, tag):
+    """Class ids equal, boxes and scores within 1e-5 (tests/
+    test_serve.py:185-190); returns the largest box and score
+    differences."""
+    worst = [0.0, 0.0]
+    for d, b in zip(direct, served):
+        if not np.array_equal(d["class_ids"], b["class_ids"]):
+            raise RuntimeError(f"{tag}: class ids differ")
+        for i, k in enumerate(("rois", "scores")):
+            diff = float(np.abs(np.asarray(d[k], np.float64)
+                                - np.asarray(b[k], np.float64)).max(
+                                    initial=0.0))
+            worst[i] = max(worst[i], diff)
+    if max(worst) > 1e-5:
+        raise RuntimeError(f"{tag}: boxes or scores differ by {worst}")
+    return worst
+
+
+def http_run(eng, scenes, rcams, kmat):
+    """HTTP_REQUESTS POSTs of `scenes` from 4 client threads through
+    detect_remote to make_server(eng) on localhost: every request must
+    resolve with 640^2 masks and finite scores, /stats count them in at
+    least HTTP_REQUESTS / 4 batches and /healthz answer ok. Returns
+    (wall seconds, the batcher's stats)."""
+    server, batcher = make_server(eng, port=0, batch_size=SERVE_BATCH,
+                                  max_delay_ms=50)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    results, errors = {}, []
+
+    def client(first):
+        try:
+            for i in range(first, HTTP_REQUESTS, 4):
+                results[i] = detect_remote(url, scenes[i], Rcam=rcams[i],
+                                           Kmat=kmat, timeout=600)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    try:
+        t = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        with urlopen(f"{url}/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        with urlopen(f"{url}/healthz", timeout=60) as resp:
+            health = resp.read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+    if errors or len(results) != HTTP_REQUESTS:
+        raise RuntimeError(f"HTTP requests failed: {errors}")
+    if stats["requests"] != HTTP_REQUESTS or stats["batches"] < \
+            HTTP_REQUESTS // SERVE_BATCH or health != b"ok":
+        raise RuntimeError(f"HTTP server stats {stats}, health {health!r}")
+    for r in results.values():
+        if r["masks"].shape[:2] != (SERVE_SIZE, SERVE_SIZE) or \
+                not np.isfinite(r["scores"]).all():
+            raise RuntimeError("HTTP results malformed")
+    return wall, stats
+
+
+def host_breakdown(eng, scenes, rcam, kmat):
+    """One batch, unprofiled, on the host clock: molding, the upload (the
+    device batch built and synchronised), the forward, the copy of the
+    outputs to the host and unmolding; and the uint8 upload's bytes
+    against float32's."""
+    t0 = time.perf_counter()
+    molded, metas, windows = eng._mold_batch(scenes)
+    t1 = time.perf_counter()
+    batch = eng._device_batch(molded, metas, rcam, kmat, None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    outs = eng.inference_model()(batch)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    det = outs["detections"].float().cpu().numpy()
+    masks = outs["mrcnn_masks"].float().cpu().numpy()
+    t4 = time.perf_counter()
+    for i, img in enumerate(scenes):
+        eng.unmold_detections(det[i], masks[i], img.shape[1:],
+                              molded.shape[2:5], windows[i])
+    t5 = time.perf_counter()
+    if molded.dtype != np.uint8:
+        raise RuntimeError("the serving batch did not stay uint8")
+    as_f32 = molded.astype(np.float32)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    torch.from_numpy(as_f32).to(DEV)
+    torch.cuda.synchronize()
+    f32_upload = time.perf_counter() - t6
+    ms = {"mold": t1 - t0, "upload": t2 - t1, "forward": t3 - t2,
+          "copy_out": t4 - t3, "unmold": t5 - t4, "batch": t5 - t0}
+    return ({k: v * 1e3 for k, v in ms.items()},
+            {"uint8_bytes": molded.nbytes, "float32_bytes": as_f32.nbytes,
+             "float32_upload_ms": f32_upload * 1e3})
+
+
+FOLD_OUTPUTS = ("fused_p2", "fused_p3", "fused_p4", "fused_p5",
+                "rpn_class_logits", "rpn_bbox")
+FOLD_HEADS = ("mrcnn_class_logits", "mrcnn_bbox", "mrcnn_masks")
+# one conv each of the backbone, the P5 U-Net and the mask head
+FOLD_MUTANTS = ("backbone.res3b.conv2a", "grid_fusion_p5.up1",
+                "mask_head.mrcnn_mask_conv2")
+
+
+def _fold_outputs(eng, scenes, rcam, kmat, maps, rois):
+    """The engine's inference model on `scenes` (FOLD_OUTPUTS, from
+    run_graph with EXPOSE_FUSED_PYRAMID), and its two heads on the
+    reference's `maps` (cast to its compute dtype) and `rois`: every
+    BatchNorm of the model on inputs its own forward gives it, the heads'
+    on inputs equal across models. {name: float64 CPU tensor}."""
+    eng.config.EXPOSE_FUSED_PYRAMID = True
+    try:
+        out = {k: torch.from_numpy(v).double() for k, v in
+               eng.run_graph(scenes, FOLD_OUTPUTS, rcam, kmat).items()}
+    finally:
+        eng.config.EXPOSE_FUSED_PYRAMID = False
+    model, cfg = eng.inference_model(), eng.config
+    hw = tuple(int(d) for d in cfg.IMAGE_SHAPE[:2])
+    fmaps = [m.to(model.compute_dtype) for m in maps]
+    with torch.no_grad():
+        logits, _, bbox = model.classifier_head(
+            pyramid_roi_align(rois, fmaps, hw, cfg.POOL_SIZE))
+        masks = model.mask_head(
+            pyramid_roi_align(rois, fmaps, hw, cfg.MASK_POOL_SIZE))
+    out.update({k: t.double().cpu() for k, t in zip(
+        FOLD_HEADS, (logits, bbox, masks))})
+    return out
+
+
+def fold_reference(eng, scenes, rcam, kmat):
+    """A float32, unfolded engine with `eng`'s weights (TF32 off): its
+    outputs (_fold_outputs), the fused maps and proposals that every
+    engine's heads are then run on, and its detections."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = serve_config()
+    cfg.COMPUTE_DTYPE = "float32"
+    cfg.FOLD_BN = False
+    ref_eng = MaskRCNN("inference", cfg, "build")
+    ref_eng.model.load_state_dict(eng.model.state_dict())
+    cfg.EXPOSE_FUSED_PYRAMID = True
+    graph = ref_eng.run_graph(scenes, FOLD_OUTPUTS[:4] + ("proposals",),
+                              rcam, kmat)
+    cfg.EXPOSE_FUSED_PYRAMID = False
+    maps = [torch.from_numpy(graph[k]).to(DEV) for k in FOLD_OUTPUTS[:4]]
+    rois = torch.from_numpy(graph["proposals"]).to(DEV)
+    return (_fold_outputs(ref_eng, scenes, rcam, kmat, maps, rois), maps,
+            rois, ref_eng.detect(scenes, rcam, kmat))
+
+
+def fold_errors(eng, ref, maps, rois, scenes, rcam, kmat):
+    """{name: ||out - ref|| / ||ref||} of the engine's inference model
+    (folded or not, as its config says) against the float32 reference."""
+    got = _fold_outputs(eng, scenes, rcam, kmat, maps, rois)
+    # fused_p2 and fused_p3 are zero in conv3d (no grid at P2, P3): there
+    # the error is the output's own norm
+    return {k: float((got[k] - r).norm() / (r.norm() if r.any() else 1.0))
+            for k, r in ref.items()}
+
+
+def serve_fold_check(eng, scenes, rcam, kmat, folded_dets):
+    """The served configuration's fold in bfloat16 (`folded_dets`: the
+    engine's detections of `scenes`). Detections cannot tell a bfloat16
+    fold from a bad one: with seeded weights the scores crowd at 1.0, and
+    bfloat16 rounding alone reorders them (the matched counts printed
+    here, of 100 a scene, folded against unfolded and unfolded against
+    float32, say how far). So each output of FOLD_OUTPUTS and FOLD_HEADS
+    is held to a float32 unfolded engine with the same weights: the
+    folded bfloat16 engine's relative error may be at most FOLD_NOISE
+    times the unfolded bfloat16 engine's (its rounding alone). Then
+    fold_mutants shows that the bar catches one BN left unfolded.
+    Returns the phase's numbers."""
+    ref, maps, rois, ref_dets = fold_reference(eng, scenes, rcam, kmat)
+    errs = {}
+    for fold in (False, True):
+        eng.config.FOLD_BN = fold
+        try:
+            errs[fold] = fold_errors(eng, ref, maps, rois, scenes, rcam, kmat)
+            if not fold:
+                unfolded_dets = eng.detect(scenes, rcam, kmat)
+        finally:
+            eng.config.FOLD_BN = True
+    rows = {k: (errs[True][k], errs[False][k]) for k in ref}
+    matched = {
+        "folded_vs_unfolded": [match_detections(u, f)[2] for u, f in
+                               zip(unfolded_dets, folded_dets)],
+        "unfolded_vs_float32": [match_detections(r, u)[2] for r, u in
+                                zip(ref_dets, unfolded_dets)]}
+    say("serve", step="fold_vs_float32",
+        detections_matched=json.dumps(matched, separators=(",", ":")), **{
+            k: f"{f:.3e}/{u:.3e}" for k, (f, u) in rows.items()})
+    bad = {k: v for k, v in rows.items() if not v[0] <= FOLD_NOISE * v[1]}
+    if bad:
+        raise RuntimeError(f"the bfloat16 fold's error exceeds {FOLD_NOISE}x "
+                           f"bfloat16's own (folded, unfolded): {bad}")
+    return {"errors": rows, "detections_matched": matched,
+            "mutants": fold_mutants(eng, ref, maps, rois, scenes, rcam,
+                                    kmat, rows)}
+
+
+def fold_mutants(eng, ref, maps, rois, scenes, rcam, kmat, rows):
+    """serve_fold_check's power: for each conv of FOLD_MUTANTS, the folded
+    copy with that conv's unfolded weight and bias put back (its BN's
+    fold undone, the BN still the identity) must fail the bar. The copy
+    is restored after each. Returns {conv: the largest ratio of its error
+    to the unfolded bfloat16 error over the outputs}."""
+    fsd, sd = eng.inference_model().state_dict(), eng.model.state_dict()
+    out = {}
+    for conv in FOLD_MUTANTS:
+        keys = (f"{conv}.weight", f"{conv}.bias")
+        kept = [fsd[k].clone() for k in keys]
+        with torch.no_grad():
+            for k in keys:
+                fsd[k].copy_(sd[k])
+        try:
+            errs = fold_errors(eng, ref, maps, rois, scenes, rcam, kmat)
+        finally:
+            with torch.no_grad():
+                for k, t in zip(keys, kept):
+                    fsd[k].copy_(t)
+        out[conv] = max(errs[k] / rows[k][1] for k in errs if rows[k][1])
+    say("serve", step="fold_mutants", **out)
+    missed = [c for c, r in out.items() if not r > FOLD_NOISE]
+    if missed:
+        raise RuntimeError(f"the fold check passes a fold undone at {missed}")
+    return out
+
+
+def serve_flagship():
+    """The flagship served at 640^2, bfloat16, batch 4, folded, uint8
+    transfer: the batcher against a direct detect, the HTTP run (the
+    path's launch counts), the device events the fold removes, the
+    serve_bench throughput at batch 1 and 4, one batch's host breakdown
+    and the peak device memory. Returns (the HTTP run's launches, the
+    phase's numbers)."""
+    cfg = serve_config()
+    t = time.perf_counter()
+    eng = MaskRCNN("inference", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(0))
+    mildly_randomise_bns(eng.model, seed=8)
+    rng = np.random.RandomState(7)
+    scenes = request_images(rng, HTTP_REQUESTS, SERVE_SIZE)
+    rcams = [poses(rng, 1, 2) for _ in scenes]
+    kmat = intrinsics(1, SERVE_SIZE)
+    first = scenes[:SERVE_BATCH]
+    rc4 = np.concatenate(rcams[:SERVE_BATCH])
+    k4 = np.concatenate([kmat] * SERVE_BATCH)
+    direct = eng.detect(first, rc4, k4)          # folds; the warm-up
+    setup_s = time.perf_counter() - t
+    folded = eng.inference_model()
+    fold_check = serve_fold_check(eng, first, rc4, k4, direct)
+    copy_mb = sum(t_.numel() * t_.element_size() for t_ in itertools.chain(
+        folded.parameters(), folded.buffers())) / 1e6
+
+    with MicroBatcher(eng, batch_size=SERVE_BATCH, max_delay_ms=1000) as mb:
+        futures = [mb.submit(img, Rcam=r, Kmat=kmat)
+                   for img, r in zip(first, rcams)]
+        served = [f.result(timeout=600) for f in futures]
+    worst = _same(direct, served, "batcher vs direct")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wall, stats = http_run(eng, scenes, rcams, kmat)
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    want = expected(unproject=3 * stats["batches"],
+                    reproject=3 * stats["batches"])
+    variants = check_variants("serve", launches)
+    if launches != want:
+        raise RuntimeError(f"serve launched {launches}, not {want}")
+    say("serve", step="http", requests=stats["requests"],
+        batches=stats["batches"], padded_slots=stats["padded_slots"],
+        mean_latency_ms=stats["mean_latency_ms"], wall_s=wall,
+        launches=launches, variants=variants,
+        batcher_vs_direct_max_diff=worst, peak_device_mb=peak_mb,
+        folded_copy_mb=copy_mb, setup_s=setup_s)
+
+    cfg.FOLD_BN = False
+    unfolded_events = device_events(lambda: eng.run_model(first, rc4, k4))
+    cfg.FOLD_BN = True
+    folded_events = device_events(lambda: eng.run_model(first, rc4, k4))
+    gone = {k: n - folded_events.get(k, 0) for k, n in
+            unfolded_events.items() if n > folded_events.get(k, 0)}
+    batch_norms = sum(isinstance(m, BatchNorm) for m in eng.model.modules())
+    n_unfolded = sum(unfolded_events.values())
+    n_folded = sum(folded_events.values())
+    # an unfolded BN launches 3 device events: a device-to-device copy,
+    # then the batch_norm_calc_invstd and batch_norm_* transform kernels;
+    # the rest of the difference is the detection-dependent
+    # post-processing (the two forwards' detections differ)
+    bn_kernels = [sum(n for k, n in ev.items() if "batch_norm" in k)
+                  for ev in (unfolded_events, folded_events)]
+    copies = [ev.get(DTOD, 0) for ev in (unfolded_events, folded_events)]
+    other_gone = (n_unfolded - n_folded - bn_kernels[0] + bn_kernels[1]
+                  - copies[0] + copies[1])
+    say("serve", step="fold_events", batch_norms=batch_norms,
+        events_unfolded=n_unfolded, events_folded=n_folded,
+        bn_kernels=bn_kernels, dtod_copies=copies,
+        other_events_gone=other_gone,
+        gone=json.dumps(gone, separators=(",", ":")),
+        unfolded=json.dumps(unfolded_events, separators=(",", ":")),
+        folded=json.dumps(folded_events, separators=(",", ":")))
+    if (bn_kernels != [2 * batch_norms, 0]
+            or copies[0] - copies[1] != batch_norms):
+        raise RuntimeError(f"folding left BatchNorm kernels {bn_kernels} "
+                           f"and device copies {copies}, not "
+                           f"[{2 * batch_norms}, 0] and {batch_norms} fewer")
+
+    throughput = {}
+    # at the tool's own detection threshold
+    cfg.DETECTION_MIN_CONFIDENCE = serve_bench.build_config(
+        SERVE_BATCH, SERVE_SIZE).DETECTION_MIN_CONFIDENCE
+    for b in (1, SERVE_BATCH):
+        r = serve_bench.measure(eng, b, SERVE_REQUESTS)
+        throughput[f"batch{b}"] = {k: r[k] for k in (
+            "value", "mean_latency_ms", "batches", "padded_slots",
+            "mean_detections")}
+        say("serve", step="serve_bench", **r)
+    cfg.DETECTION_MIN_CONFIDENCE = 0.0
+    breakdown, upload = host_breakdown(eng, first, rc4, k4)
+    say("serve", step="breakdown", breakdown_ms=json.dumps(
+        breakdown, separators=(",", ":")), **upload)
+    return launches, {
+        "http": {"requests": stats["requests"], "batches": stats["batches"],
+                 "mean_latency_ms": stats["mean_latency_ms"],
+                 "wall_s": wall},
+        "batcher_vs_direct_max_diff": worst,
+        "fold_vs_float32": fold_check,
+        "fold_events": {"batch_norms": batch_norms,
+                        "unfolded": n_unfolded, "folded": n_folded,
+                        "bn_kernels": bn_kernels, "dtod_copies": copies,
+                        "other_gone": other_gone},
+        "throughput": throughput, "breakdown_ms": breakdown,
+        "upload": upload, "peak_device_mb": peak_mb,
+        "folded_copy_mb": copy_mb}
+
+
+def phase_serve(record):
+    """Phase 12; returns the launch counts of its HTTP run."""
+    t = time.perf_counter()
+    kernels_b4 = serve_kernels(record)
+    parity = serve_parity()
+    launches, numbers = serve_flagship()
+    print(json.dumps({"phase": "serve", "kernels_b4": kernels_b4,
+                      "fold_batch_parity": parity, **numbers,
+                      "launches": launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    return launches
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -1555,6 +2110,7 @@ def main():
     paths["lstm3d_train"] = phase_lstm_train()
     paths["xformer_inference"], paths["xformer_train"] = phase_xformer()
     paths["cli_train"], paths["cli_evaluate"] = phase_cli()
+    paths["serve"] = phase_serve(record)
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

@@ -3,22 +3,29 @@ training.
 
 Port of `mulit_view_object_detection_tpu/compat/model.py`:
 `MaskRCNN(mode, config, model_dir, device="cuda")` with `detect(images,
-Rcam, Kmat, depths)`, `mold_inputs` / `unmold_detections` (the JAX engine's
-contract; molding from the port's numpy copy `data/molding.py`),
+Rcam, Kmat, depths)`, `detect_molded`, `run_graph` and `ancestor`,
+`mold_inputs` / `unmold_detections` (the JAX engine's contract; molding
+from the port's numpy copy `data/molding.py`, or on the device with
+UINT8_IMAGE_TRANSFER),
 `train(...)` (with per-epoch JSONL and TensorBoard scalars in `log_dir`),
 `save_weights` / `load_weights` (checkpoint directories, and Keras .h5
 files by layer name), `find_last` and `set_log_dir`. The engine runs on
 the card unless the caller asks for the CPU. Weights start from flax's
 initialisation scheme drawn from seed 0 (the JAX engine starts from
 PRNGKey(0)), and can come from the JAX package's flax variables
-(`load_flax_variables`) or a seeded `init_weights`.
+(`load_flax_variables`) or a seeded `init_weights`. With FOLD_BN the
+inference calls run a BN-folded copy of the model (`inference_model`);
+training and `save_weights` keep the unfolded one.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
+import itertools
 import logging
 import os
+import re
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from ..train.checkpoint import (latest_step, restore_checkpoint,
 from ..train.optim import make_optimizer
 from ..train.step import train_step, val_step
 from ..train.trainable import trainable_mask
+from ..utils.bn_fold import fold_bn_model
 from ..utils.convert import flax_to_torch
 from ..utils.logging_utils import MetricsLogger, TBEventWriter
 
@@ -69,6 +77,7 @@ class MaskRCNN:
         self.model = model.to(self.device).eval()
         self.epoch = 0
         self._anchors = {}
+        self._folded = None          # (weights' versions, folded copy)
         # ROI sampling priorities of the train and validation steps
         self._sampling = torch.Generator(self.device).manual_seed(0)
         self.set_log_dir()
@@ -157,19 +166,28 @@ class MaskRCNN:
     # molding
     # ------------------------------------------------------------------ #
     def mold_inputs(self, images):
-        """images: list of [H, W, 3] uint8. Returns (molded [N, h, w, 3]
-        float32, metas [N, META], windows [N, 4]) (model.py:2666-2696)."""
+        """images: list of [H, W, 3] uint8. Returns (molded [N, h, w, 3],
+        metas [N, META], windows [N, 4]) (model.py:2666-2696). Molded is
+        float32, mean-subtracted; with UINT8_IMAGE_TRANSFER and every
+        image uint8 it is the resized uint8 pixels, which the model
+        de-molds on the device (4x fewer bytes to the card)."""
         cfg = self.config
         molded_images, image_metas, windows = [], [], []
         for image in images:
             molded, window, scale, _, _ = resize_image(
                 image, min_dim=cfg.IMAGE_MIN_DIM, min_scale=cfg.IMAGE_MIN_SCALE,
                 max_dim=cfg.IMAGE_MAX_DIM, mode=cfg.IMAGE_RESIZE_MODE)
-            molded_images.append(mold_image(molded, cfg.MEAN_PIXEL))
+            molded_images.append(molded)
             image_metas.append(compose_image_meta(
                 0, image.shape, molded.shape, window, scale,
                 np.zeros([cfg.NUM_CLASSES], dtype=np.int32)))
             windows.append(window)
+        # a whole-batch decision: the model de-molds by the batch's dtype,
+        # so one float image sends every image through host molding
+        if not (cfg.UINT8_IMAGE_TRANSFER
+                and all(m.dtype == np.uint8 for m in molded_images)):
+            molded_images = [mold_image(m, cfg.MEAN_PIXEL)
+                             for m in molded_images]
         return (np.stack(molded_images), np.stack(image_metas),
                 np.stack(windows))
 
@@ -214,22 +232,47 @@ class MaskRCNN:
     # ------------------------------------------------------------------ #
     # inference
     # ------------------------------------------------------------------ #
-    def run_model(self, images, Rcam=None, Kmat=None, depths=None):
-        """Mold `images` (each a [V, H, W, 3] stack, main view first, or
-        one [H, W, 3] image) and run the model; `depths` [B, V, h5, w5]
-        (metric depth at P5's resolution) is required with TRANSFORMER.
-        Returns (the model's output tensors on the device, molded shape
-        [h, w, 3], windows [B, 4]) — detect() without the unmolding."""
-        molded, metas, windows = [], [], []
-        for item in images:
-            views = np.asarray(item)
-            if views.ndim == 3:
-                views = views[None]
-            m, meta, win = self.mold_inputs(list(views))
-            molded.append(m)
-            metas.append(meta[0])
-            windows.append(win[0])
-        molded = np.stack(molded)                     # [B, V, h, w, 3]
+    def inference_model(self):
+        """The model that detect, detect_molded and run_graph run. With
+        FOLD_BN a copy of the model with its BatchNorms folded
+        (utils/bn_fold.py), made on the engine's device (a second set of
+        weights there) and made again whenever a weight of the model has
+        changed since (load_weights, load_flax_variables, init_weights,
+        train, or any other in-place write); else the model itself."""
+        if not self.config.FOLD_BN:
+            return self.model
+        key = tuple((id(t), t._version) for t in itertools.chain(
+            self.model.parameters(), self.model.buffers()))
+        if self._folded is None or self._folded[0] != key:
+            self._folded = None                   # one copy on the card
+            # the copy shares the config: a later edit reaches both
+            folded = copy.deepcopy(self.model,
+                                   {id(self.config): self.config})
+            fold_bn_model(folded)
+            self._folded = (key, folded)
+        return self._folded[1]
+
+    def _mold_batch(self, images):
+        """images: each a [V, H, W, 3] stack (main view first) or one
+        [H, W, 3] image -> (molded [B, V, h, w, 3], metas [B, META],
+        windows [B, 4]), each scene's meta and window those of its main
+        view. Every view of every scene is molded in one mold_inputs
+        call, so UINT8_IMAGE_TRANSFER decides for the whole batch."""
+        scenes = [np.asarray(item) for item in images]
+        scenes = [s[None] if s.ndim == 3 else s for s in scenes]
+        if len({len(s) for s in scenes}) != 1:
+            raise ValueError("every scene of a batch needs the same number "
+                             "of views")
+        molded, metas, windows = self.mold_inputs(
+            [view for s in scenes for view in s])
+        v = len(scenes[0])
+        return (molded.reshape(len(scenes), v, *molded.shape[1:]),
+                metas[::v], windows[::v])
+
+    def _device_batch(self, molded, metas, Rcam, Kmat, depths):
+        """The model's inference batch on the engine's device from molded
+        [B, V, h, w, 3] (float32, or uint8 pixels) and metas [B, META];
+        Rcam and Kmat default to identities."""
         b, v = molded.shape[:2]
         if Rcam is None:
             Rcam = np.tile(np.eye(3, 4, dtype=np.float32), (b, v, 1, 1))
@@ -237,8 +280,9 @@ class MaskRCNN:
             Kmat = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
         dev = self.device
         batch = {
-            "images": torch.from_numpy(molded).to(dev),
-            "image_meta": torch.from_numpy(np.stack(metas)).to(dev),
+            "images": torch.from_numpy(np.ascontiguousarray(molded)).to(dev),
+            "image_meta": torch.from_numpy(
+                np.asarray(metas, np.float32)).to(dev),
             "anchors": self.get_anchors(molded.shape[2:]),
             "Rcam": torch.as_tensor(np.asarray(Rcam, np.float32), device=dev),
             "Kmat": torch.as_tensor(np.asarray(Kmat, np.float32), device=dev),
@@ -248,7 +292,31 @@ class MaskRCNN:
                 raise ValueError("TRANSFORMER fusion needs `depths`")
             batch["depths"] = torch.as_tensor(np.asarray(depths, np.float32),
                                               device=dev)
-        return self.model(batch), molded.shape[2:5], np.stack(windows)
+        return batch
+
+    def run_model(self, images, Rcam=None, Kmat=None, depths=None):
+        """Mold `images` (each a [V, H, W, 3] stack, main view first, or
+        one [H, W, 3] image) and run the model; `depths` [B, V, h5, w5]
+        (metric depth at P5's resolution) is required with TRANSFORMER.
+        Returns (the model's output tensors on the device, molded shape
+        [h, w, 3], windows [B, 4]) — detect() without the unmolding."""
+        molded, metas, windows = self._mold_batch(images)
+        batch = self._device_batch(molded, metas, Rcam, Kmat, depths)
+        return self.inference_model()(batch), molded.shape[2:5], windows
+
+    def _unmold_all(self, outputs, original_shapes, molded_shape, windows):
+        """detect()'s result dicts from the model's outputs, one per
+        original image shape."""
+        detections = outputs["detections"].float().cpu().numpy()
+        masks = outputs["mrcnn_masks"].float().cpu().numpy()
+        results = []
+        for i, original_shape in enumerate(original_shapes):
+            rois, class_ids, scores, full_masks = self.unmold_detections(
+                detections[i], masks[i], original_shape, molded_shape,
+                windows[i])
+            results.append({"rois": rois, "class_ids": class_ids,
+                            "scores": scores, "masks": full_masks})
+        return results
 
     def detect(self, images, Rcam=None, Kmat=None, depths=None, verbose=0):
         """Run detection. For multi-view, each element of `images` is a
@@ -258,18 +326,65 @@ class MaskRCNN:
         of dicts with rois/class_ids/scores/masks."""
         outputs, molded_shape, windows = self.run_model(images, Rcam, Kmat,
                                                         depths)
-        detections = outputs["detections"].float().cpu().numpy()
-        masks = outputs["mrcnn_masks"].float().cpu().numpy()
-        results = []
-        for i, item in enumerate(images):
-            views = np.asarray(item)
-            original_shape = (views if views.ndim == 3 else views[0]).shape
-            rois, class_ids, scores, full_masks = self.unmold_detections(
-                detections[i], masks[i], original_shape, molded_shape,
-                windows[i])
-            results.append({"rois": rois, "class_ids": class_ids,
-                            "scores": scores, "masks": full_masks})
-        return results
+        originals = [(views if views.ndim == 3 else views[0]).shape
+                     for views in map(np.asarray, images)]
+        return self._unmold_all(outputs, originals, molded_shape, windows)
+
+    def detect_molded(self, molded_images, image_metas, Rcam=None,
+                      Kmat=None, depths=None):
+        """Run detection on already-molded inputs (model.py:2547-2608):
+        molded_images [B, V, h, w, 3] (or [B, h, w, 3] single-view) float,
+        image_metas [B, META]; each result unmolds to the original shape
+        and window its meta records."""
+        molded = np.asarray(molded_images, np.float32)
+        if molded.ndim == 4:
+            molded = molded[:, None]
+        metas = np.asarray(image_metas, np.float32)
+        outputs = self.inference_model()(
+            self._device_batch(molded, metas, Rcam, Kmat, depths))
+        originals = [tuple(m[1:4].astype(int)) for m in metas]
+        return self._unmold_all(outputs, originals, molded.shape[2:5],
+                                metas[:, 7:11].astype(int))
+
+    def run_graph(self, images, outputs=None, Rcam=None, Kmat=None,
+                  depths=None):
+        """Partial-graph debugger (model_multi.py:3213-3271): run inference
+        on `images` (as detect takes them) and return the named outputs
+        of the model as numpy arrays in the JAX package's layouts (float
+        tensors as float32). `outputs` lists keys of the model's output
+        dict ('proposals', 'rpn_probs', 'detections', with
+        EXPOSE_FUSED_PYRAMID 'fused_p2'..'fused_p5', ...); None returns
+        every one."""
+        result, _, _ = self.run_model(images, Rcam, Kmat, depths)
+        names = list(result) if outputs is None else list(outputs)
+        return {k: (result[k].float() if result[k].is_floating_point()
+                    else result[k]).cpu().numpy() for k in names}
+
+    def ancestor(self, pattern, images=None, **kwargs):
+        """Regex search over the inference graph's named outputs (the
+        reference's graph search, model_multi.py:3164-3190; the names are
+        run_graph's keys). Without images, the list of matching names (no
+        compute runs); with images, {name: array} of run_graph(images,
+        **kwargs) for every matching name."""
+        rx = re.compile(pattern)
+        if images is None:
+            # the inference outputs in the JAX engine's order
+            names = ["rpn_class_logits", "rpn_probs", "rpn_bbox",
+                     "proposals", "mrcnn_class_logits", "mrcnn_probs",
+                     "mrcnn_bbox", "detections", "mrcnn_masks"]
+            if self.config.EXPOSE_FUSED_PYRAMID:
+                names[4:4] = ["fused_p2", "fused_p3", "fused_p4",
+                              "fused_p5"]
+            return [n for n in names if rx.search(n)]
+        result = self.run_graph(images, outputs=None, **kwargs)
+        return {k: v for k, v in result.items() if rx.search(k)}
+
+    def get_imagenet_weights(self):
+        """The reference downloads the keras ImageNet ResNet weights
+        (model.py:2644-2656); this package reaches no network."""
+        raise NotImplementedError(
+            "No network access: download the Matterport COCO h5 or the keras "
+            "ResNet ImageNet h5 elsewhere and pass it to load_weights.")
 
     # ------------------------------------------------------------------ #
     # training

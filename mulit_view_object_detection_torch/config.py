@@ -356,12 +356,10 @@ class Config:
 
 # TPU-only serving lowerings: identical parameters and math as the plain
 # layers, so the port runs the plain layers and refuses the flags.
-_TPU_LOWERINGS = ("FOLD_BN", "PHASE_DECONV", "PHASE_DECONV_MASK",
-                  "ZFOLD_FUSION", "STEM_S2D", "CROSS_LEVEL_FUSION",
-                  "LSTM_HOIST_INPUT")
+_TPU_LOWERINGS = ("PHASE_DECONV", "PHASE_DECONV_MASK", "ZFOLD_FUSION",
+                  "STEM_S2D", "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT")
 # Paths the JAX package has and this port does not run yet.
-_NOT_YET = ("TRAIN_BN", "REMAT", "TRILINEAR_REPROJECTION",
-            "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID", "VIEW_SHARDING")
+_NOT_YET = ("TRAIN_BN", "REMAT", "TRILINEAR_REPROJECTION", "VIEW_SHARDING")
 # GridFusion modes of the projected path (TRANSFORMER switches the
 # transformer fusion, not GRID_REAS)
 _PORTED_FUSIONS = ("add", "mean", "ident", "conv3d", "lstm3d")
@@ -373,9 +371,13 @@ def check_supported(cfg):
     Runs: single view, VANILLA, the projected multi-view path with every
     GridFusion mode (add, mean, ident, conv3d, lstm3d), and the
     transformer view fusion (TRANSFORMER); COMPUTE_DTYPE float32 or
-    bfloat16. USE_PALLAS is ignored (the CUDA kernels run whenever the
-    tensors are on the GPU). Refuses the TPU-only lowerings and the paths
-    not ported yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION, ...)."""
+    bfloat16; the serving options FOLD_BN (inference runs a BN-folded
+    copy of the model, utils/bn_fold.py; training is unaffected),
+    UINT8_IMAGE_TRANSFER (uint8 images de-molded on the device) and
+    EXPOSE_FUSED_PYRAMID (the fused P2..P5 among the outputs).
+    USE_PALLAS is ignored (the CUDA kernels run whenever the tensors are
+    on the GPU). Refuses the TPU-only lowerings and the paths not ported
+    yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION, VIEW_SHARDING)."""
     for name in _TPU_LOWERINGS:
         if getattr(cfg, name, False):
             raise ValueError(

@@ -122,6 +122,7 @@ class MaskRCNN(nn.Module):
         self.mask_head = MaskHead(c, cfg.NUM_CLASSES,
                                   128 if self.multiview else 256)
         self._grid_pts = {}
+        self._mean = {}
         set_compute_dtype(self, self.compute_dtype)
 
     @torch.no_grad()
@@ -158,6 +159,12 @@ class MaskRCNN(nn.Module):
         if self.transformer and self.config.XFORMER_ZERO_INIT:
             self.view_transformer.token_proj.weight.zero_()
 
+    def _mean_pixel(self, device):
+        if device not in self._mean:
+            self._mean[device] = torch.as_tensor(
+                np.asarray(self.config.MEAN_PIXEL, np.float32), device=device)
+        return self._mean[device]
+
     def _grid_points(self, device):
         if device not in self._grid_pts:
             self._grid_pts[device] = torch.from_numpy(
@@ -165,7 +172,8 @@ class MaskRCNN(nn.Module):
         return self._grid_pts[device]
 
     def forward(self, batch, training=False):
-        """batch: images [B, V, H, W, 3] molded float; image_meta
+        """batch: images [B, V, H, W, 3] molded float, or resized uint8
+        pixels (UINT8_IMAGE_TRANSFER), de-molded here; image_meta
         [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
         [B, 3, 3] float32 (multi-view); depths [B, V, h5, w5] float32 at
         P5's resolution (TRANSFORMER). Training adds gt_class_ids [B, G],
@@ -173,7 +181,8 @@ class MaskRCNN(nn.Module):
         ROI sampling priorities pos_priority, neg_priority
         [B, POST_NMS_ROIS_TRAINING] uniform in [0, 1), and (TRANSFORMER
         with XFORMER_DROPOUT > 0) dropout_generator. All tensors on the
-        model's device. Returns the JAX module's outputs for the mode.
+        model's device. Returns the JAX module's outputs for the mode
+        (with EXPOSE_FUSED_PYRAMID also fused_p2..fused_p5 [B, h, w, C]).
         Inference computes no gradient."""
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
             return self._forward(batch, training)
@@ -184,7 +193,13 @@ class MaskRCNN(nn.Module):
         b, v, h, w, _ = images.shape
         if v != cfg.NUM_VIEWS:
             raise ValueError(f"images carry {v} views, config {cfg.NUM_VIEWS}")
-        x = images.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
+        x = images.reshape(b * v, h, w, -1)
+        if x.dtype == torch.uint8:
+            # UINT8_IMAGE_TRANSFER: raw resized pixels came to the device
+            # (4x fewer bytes); de-mold here in float32, bit-identical to
+            # the host's mold_image on the same uint8 pixels
+            x = x.float() - self._mean_pixel(x.device)
+        x = x.permute(0, 3, 1, 2)
         _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype))
         levels = self.fpn(c2, c3, c4, c5)
         fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w),
@@ -223,6 +238,11 @@ class MaskRCNN(nn.Module):
         }
 
         mrcnn_maps = [fm.permute(0, 2, 3, 1) for fm in fmaps[:4]]
+        if cfg.EXPOSE_FUSED_PYRAMID:
+            # the post-fusion pyramid (the reference's PG2..PG5), NHWC as
+            # in the JAX package, for run_graph / ancestor
+            outputs.update({f"fused_p{li + 2}": fm
+                            for li, fm in enumerate(mrcnn_maps)})
         if training:
             rois, tcls, tdeltas, tmasks = detection_targets_batch(
                 proposals, batch["gt_class_ids"], batch["gt_boxes"],

@@ -47,17 +47,38 @@ class BatchNorm(nn.Module):
 
     As in flax, its parameters and statistics stay float32 whatever the
     compute dtype: F.batch_norm normalises a bfloat16 input in float32
-    and rounds once on output."""
+    and rounds once on output.
+
+    Folded (utils/bn_fold.py::fold_bn_model, for inference) it takes one
+    of two forms, with the same parameter and buffer names: "identity",
+    where its affine went into the conv before it (it launches nothing),
+    or "affine", x * weight + bias in the compute dtype (the JAX
+    `_AffineBN`, resnet.py:38-48)."""
 
     def __init__(self, channels, eps=1e-3):
         super().__init__()
         self.eps = eps
+        self.form = "batch_norm"
+        self.compute_dtype = torch.float32
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def fold(self, form, dtype):
+        if form not in ("identity", "affine"):
+            raise ValueError(f"unknown folded BatchNorm form {form!r}")
+        self.form = form
+        self.compute_dtype = dtype
+
     def forward(self, x):
+        if self.form == "identity":
+            return x
+        if self.form == "affine":
+            dt = self.compute_dtype
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            return (x.to(dt) * self.weight.to(dt).view(shape)
+                    + self.bias.to(dt).view(shape))
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
 

@@ -301,7 +301,8 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
     device='cuda' without CUDA raises; the TPU-only lowerings and the
     paths not ported yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION among
     them) are refused, not approximated, and so is a GRID_REAS that no
-    GridFusion mode has."""
+    GridFusion mode has; the serving options (FOLD_BN,
+    UINT8_IMAGE_TRANSFER, EXPOSE_FUSED_PYRAMID) are accepted."""
     cfg = SliceConfig()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -310,13 +311,18 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
             MaskRCNN("training", cfg, str(tmp_path), device="cuda")
     with pytest.raises(ValueError, match="mode"):
         MaskRCNN("serving", cfg, str(tmp_path), device="cpu")
-    for flag in ("FOLD_BN", "PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
+    for flag in ("PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
                  "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT", "TRAIN_BN",
-                 "REMAT", "TRILINEAR_REPROJECTION"):
+                 "REMAT", "TRILINEAR_REPROJECTION", "VIEW_SHARDING"):
         bad = SliceConfig()
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
             check_supported(bad)
+    # the serving options are ported
+    for flag in ("FOLD_BN", "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID"):
+        ok = SliceConfig()
+        setattr(ok, flag, True)
+        check_supported(ok)
     bad = SliceConfig()
     bad.GRID_REAS = "transformer"
     with pytest.raises(ValueError, match="GRID_REAS"):

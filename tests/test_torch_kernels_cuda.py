@@ -537,3 +537,99 @@ def test_reproject_bwd_shared_and_invalid_slices(dev, dtype, iz):
     for z in range(40):
         if z not in iz:
             assert not bool(got[..., z, :].any()), z
+
+
+# ---------------------------------------------------------------------------
+# the serving batch: both main-path forwards at B = 4 (the flagship grid,
+# 2 views at 640^2, each scene with its own poses and intrinsics), against
+# the plain versions and against each scene run alone at B = 1
+# ---------------------------------------------------------------------------
+
+class _Flagship4(_Flagship):
+    vsize = (_Flagship.vmax - _Flagship.vmin) / _Flagship.nvox
+
+
+def _scene_geometry(dev, b, v=2):
+    """Per-scene poses (view 0 the grid's frame, the others turned and
+    shifted) and intrinsics that differ from scene to scene."""
+    g = torch.Generator().manual_seed(b)
+    rcam = torch.eye(3, 4).repeat(b, v, 1, 1)
+    for i in range(b):
+        for j in range(1, v):
+            a = (torch.rand(3, generator=g) - 0.5) * 0.6
+            c, s = torch.cos(a), torch.sin(a)
+            rz = torch.tensor([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+            rx = torch.tensor([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]])
+            rcam[i, j, :, :3] = rx @ rz
+            rcam[i, j, :, 3] = (torch.rand(3, generator=g) - 0.5) * 1.2
+    f = 576.0 + 16.0 * torch.arange(b, dtype=torch.float32)
+    kmat = torch.zeros(b, 3, 3)
+    kmat[:, 0, 0] = kmat[:, 1, 1] = f
+    kmat[:, 0, 2] = kmat[:, 1, 2] = 320.0
+    kmat[:, 2, 2] = 1.0
+    return rcam.to(dev), kmat.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [40, 20, 10])
+def test_unproject_fused_at_batch_four(dev, dtype, s):
+    """unproject_features_fused at B = 4 (the serving batch): one vector
+    launch, equal to the plain gather, and scene i equal to the kernel on
+    scene i's rows alone with the same coordinates (the batch strides of
+    feats, coordinates and output). The coordinates of a scene projected
+    in a batch of 4 and alone may differ in the last bit (the batched
+    matmul of project_voxel_coords picks its kernel by batch size), so
+    the per-scene check reuses the batch's."""
+    cfg = _Flagship4()
+    b, v, c = 4, 2, 64
+    rcam, kmat = _scene_geometry(dev, b, v)
+    pts = torch.from_numpy(P.voxel_grid_points(cfg)).to(dev)
+    g = torch.Generator().manual_seed(s)
+    feats = torch.randn(b, v, s, s, c, generator=g).to(dev, dtype)
+    unproject.fused_variants.clear()
+    got = unproject.unproject_features_fused(feats, rcam, kmat, (640, 640),
+                                             pts, (40, 40, 40))
+    torch.cuda.synchronize()
+    assert dict(unproject.fused_variants) == {"fwd_vector": 1}
+    x, y = P.project_voxel_coords(rcam, kmat, (640, 640), pts, s, s)
+    want = P.bilinear_gather_fused(feats.reshape(b * v, s * s, c),
+                                   x.contiguous(), y.contiguous(), s, s, v,
+                                   True).reshape(got.shape)
+    assert got.shape == (b, 40, 40, 40, v * c)
+    assert torch.equal(got, want)
+    for i in range(b):
+        rows = slice(i * v, (i + 1) * v)
+        alone = unproject.bilinear_gather_fused(
+            feats[i].reshape(v, s * s, c), x[rows].contiguous(),
+            y[rows].contiguous(), s, s, v, True)
+        assert torch.equal(alone[0].reshape(got[i].shape), got[i]), i
+    assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [40, 20, 10])
+def test_reproject_at_batch_four(dev, dtype, s):
+    """project_grid_nearest at B = 4 with each scene's own intrinsics: one
+    vector launch, equal to the plain gather, and scene i equal to scene
+    i run alone."""
+    cfg = _Flagship4()
+    b, c = 4, 64
+    _, kmat = _scene_geometry(dev, b)
+    g = torch.Generator().manual_seed(s + 1)
+    grid = torch.randn(b, 40, 40, 40, c, generator=g).to(dev, dtype)
+    reproject.variants.clear()
+    got = reproject.project_grid_nearest(grid, kmat, (640, 640), s,
+                                         cfg.samples, cfg)
+    torch.cuda.synchronize()
+    assert dict(reproject.variants) == {"fwd_vector": 1}
+    xg, yg, iz = P.reprojection_coords(kmat, (640, 640), s, cfg.samples, cfg,
+                                       40, 40, 40)
+    want = P.zslice_gather(grid, xg.contiguous(), yg.contiguous(), iz)
+    assert got.shape == (b, cfg.samples, s, s, c)
+    assert torch.equal(got, want.reshape(got.shape))
+    for i in range(b):
+        alone = reproject.project_grid_nearest(grid[i:i + 1], kmat[i:i + 1],
+                                               (640, 640), s, cfg.samples,
+                                               cfg)
+        assert torch.equal(alone[0], got[i]), i
+    assert not torch.equal(got[0], got[1])

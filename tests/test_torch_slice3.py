@@ -237,12 +237,14 @@ def test_check_supported_accepts_slice3():
     """Every fusion mode and TRANSFORMER run; TRILINEAR_REPROJECTION,
     TRAIN_BN, REMAT and the TPU lowerings (the hoisted ConvLSTM input conv
     among them) stay refused, and GRID_REAS="transformer" points at the
-    TRANSFORMER flag."""
+    TRANSFORMER flag. FOLD_BN, once a refused lowering, is ported
+    (tests/test_torch_detector.py::test_engine_refuses_what_it_cannot_run
+    checks that it is accepted)."""
     for mode in ("add", "mean", "ident", "conv3d", "lstm3d"):
         check_supported(_mode_config(mode))
     check_supported(_xformer_config("faithful"))
     for flag in ("TRILINEAR_REPROJECTION", "TRAIN_BN", "REMAT",
-                 "LSTM_HOIST_INPUT", "FOLD_BN", "CROSS_LEVEL_FUSION"):
+                 "LSTM_HOIST_INPUT", "CROSS_LEVEL_FUSION"):
         bad = _mode_config("lstm3d")
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
