@@ -150,6 +150,43 @@ Phases, one line each (any failure exits non-zero):
                scene), the uint8 upload's bytes against float32's, the
                folded copy's size and the peak device memory. One JSON
                line {"phase": "serve", ...}.
+ 13. train_options — the training options, at full width. (a) The
+               flagship training config with TRAIN_BN and REMAT: 3 steps
+               through compat.MaskRCNN.train; every BatchNorm's running
+               statistics move (backbone, fusion, collapse, heads); then
+               a step at stage "heads" moves the frozen backbone's
+               statistics and none of its parameters; a validation step
+               moves none; the kernels launch 3 levels x 3 steps forward
+               and backward in the main variants (none from a REMAT
+               recomputation), the validation step forwards only; step
+               time and a profiled step. (b) The 4-view conv3d step at
+               640^2 in bf16, REMAT off then on, same weights, batch and
+               priorities: the peak device memory of a step, the step
+               time, the first step's losses within REMAT_LOSS_REL. (c)
+               TRILINEAR_REPROJECTION: CPU vs GPU detections (phase 6's
+               bar) and a train step at stage "all" (phase 7's rule, the
+               backbone's CPU-vs-GPU ReLU flips pinned to the CPU's
+               values) at 256^2 in float32, TF32 off, the reprojection
+               kernels never launched; then 3 flagship requests in bf16, the fused
+               unprojection 3 x 3 times and nothing else. (d) Two spawned
+               ProcessPrefetcher workers feed 3 flagship steps, each batch
+               equal to make_batch for its seed (workers report any CUDA
+               initialisation as a failure); a worker killed with SIGKILL
+               surfaces as PrefetchError within KILL_BOUND_S; no worker
+               left alive. (e) Two ranks on the card over gloo, spawned
+               here: at 256^2 in float32, TF32 off, one step with frozen
+               BN and one with TRAIN_BN, the ranks holding different
+               numbers of positive anchors: the ranks bit-equal, and
+               against the single-process batch-2 step the losses and the
+               updated statistics within 1e-4, the gradients by phase 7's
+               rule with frozen BN and by DP_BN_GRAD_TOL / DP_BN_NORM_TOL
+               with TRAIN_BN, the biases whose exact gradient is zero
+               left out (`rounding_only`); a third step with the
+               BatchNorm sums' backward all-reduce dropped must fail that
+               rule; then 2 flagship steps in
+               bf16 through compat.MaskRCNN.train, each step's time and
+               its gradient all-reduce's share; rank 0 alone writes. One
+               JSON line {"phase": "train_options", ...}.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -157,18 +194,23 @@ The line before the last is the kernels' JSON record; the last is
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import io
 import itertools
 import json
+import multiprocessing
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 from urllib.request import urlopen
 
 import numpy as np
@@ -177,6 +219,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False — needs a GPU")
 
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from mulit_view_object_detection_torch.cli import interior_multi as cli  # noqa: E402
@@ -187,7 +230,7 @@ from mulit_view_object_detection_torch.compat import MaskRCNN  # noqa: E402
 from mulit_view_object_detection_torch.compat import model as engine  # noqa: E402
 from mulit_view_object_detection_torch.config import Config  # noqa: E402
 from mulit_view_object_detection_torch.data.generator import (  # noqa: E402
-    make_batch)
+    PrefetchError, ProcessPrefetcher, make_batch)
 from mulit_view_object_detection_torch.data.synthetic import (  # noqa: E402
     SyntheticMultiViewDataset)
 from mulit_view_object_detection_torch.kernels import (  # noqa: E402
@@ -196,12 +239,18 @@ from mulit_view_object_detection_torch.models.resnet import BatchNorm  # noqa: E
 from mulit_view_object_detection_torch.ops import projection as plain  # noqa: E402
 from mulit_view_object_detection_torch.ops.roi_align import (  # noqa: E402
     pyramid_roi_align)
+from mulit_view_object_detection_torch.parallel import (  # noqa: E402
+    data_parallel_group, host_local_batch_slice, init_distributed)
+from mulit_view_object_detection_torch.parallel import (  # noqa: E402
+    distributed as parallel_dist)
 from mulit_view_object_detection_torch.serve import (  # noqa: E402
     MicroBatcher, detect_remote, make_server)
 from mulit_view_object_detection_torch.train.optim import (  # noqa: E402
     make_optimizer)
+from mulit_view_object_detection_torch.train import (  # noqa: E402
+    step as step_module)
 from mulit_view_object_detection_torch.train.step import (  # noqa: E402
-    draw_priorities, loss_and_grads, train_step)
+    draw_priorities, loss_and_grads, train_step, val_step)
 from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
     trainable_mask)
 from mulit_view_object_detection_torch.utils.convert import (  # noqa: E402
@@ -1538,19 +1587,30 @@ def _grad_errs(ref, got, floor):
             for n, r in ref.items()}
 
 
-def phase_train_parity(cfg, kernels, stage="all"):
+def _pin(out, ref):
+    """`out` with `ref`'s value where their signs differ; the gradient
+    passes to `out` everywhere."""
+    ref = ref.to(out.device)
+    return out + ((ref - out) * ((ref > 0) != (out > 0))).detach()
+
+
+def phase_train_parity(cfg, kernels, stage="all", pin_flips=False):
     """One train step's losses and gradients at `cfg` and trainable
     `stage`, CPU plain versions vs GPU kernels, in float32 with TF32 off,
     same weights, batch and ROI sampling priorities; the GPU step twice,
     for its own spread; each of `kernels` launched 3 times (P4, P5, P6) in
     the GPU step. Also counts the backbone ReLU inputs (bn2a, bn2b
-    outputs) whose sign differs between the CPU and the GPU forward."""
+    outputs) whose sign differs between the CPU and the GPU forward. With
+    `pin_flips`, the GPU steps take the CPU's value at those inputs (a
+    change under 3e-5 that leaves the gradient's path as it is), so both
+    devices run the same ReLU masks and the flips' share of the
+    difference is taken out of it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ds = SyntheticMultiViewDataset(num_scenes=2, num_views=2, image_size=256,
                                    num_classes=cfg.NUM_CLASSES, seed=2)
     host = make_batch(ds, cfg, rnd_state=0)
-    runs = []
+    runs, cpu_out = [], {}
     with tempfile.TemporaryDirectory(dir="build") as model_dir:
         for dev in ("cpu", "cuda", "cuda"):
             eng = MaskRCNN("training", cfg, model_dir, device=dev)
@@ -1563,6 +1623,14 @@ def phase_train_parity(cfg, kernels, stage="all"):
                     mod.register_forward_hook(
                         lambda m, a, out, name=name: signs.__setitem__(
                             name, (out > 0).cpu()))
+                    if dev == "cpu":
+                        mod.register_forward_hook(
+                            lambda m, a, out, name=name: cpu_out.__setitem__(
+                                name, out.detach()))
+                    elif pin_flips:
+                        mod.register_forward_hook(
+                            lambda m, a, out, name=name: _pin(
+                                out, cpu_out[name]))
             reset_counts()
             mask = trainable_mask(eng.model, stage)
             for n, p in eng.model.named_parameters():
@@ -1584,7 +1652,7 @@ def phase_train_parity(cfg, kernels, stage="all"):
     flips = {n: int((sc[n] != sg[n]).sum()) for n in sc}
     worst_name = max(errs, key=errs.get)
     beyond = sorted(n for n, e in errs.items() if e > GRAD_TOL)
-    say("train_parity", config=cfg.NAME, stage=stage,
+    say("train_parity", config=cfg.NAME, stage=stage, pin_flips=pin_flips,
         losses_cpu=json.dumps(lc, separators=(",", ":")),
         losses_gpu=json.dumps(lg, separators=(",", ":")),
         max_loss_rel_err=loss_err, max_grad_err=errs[worst_name],
@@ -2091,6 +2159,517 @@ def phase_serve(record):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training options
+# ---------------------------------------------------------------------------
+class BNRematTrainConfig(FlagshipTrainConfig):
+    """The flagship training config with TRAIN_BN and REMAT."""
+    NAME = "flagship_bn_remat_640"
+    TRAIN_BN = True
+    REMAT = True
+
+
+class Conv4TrainConfig(FlagshipTrainConfig):
+    """The flagship training config at 4 views (BENCH_4VIEW_r05.json's
+    4view_640_conv3d row, trained): REMAT's memory case."""
+    NAME = "conv3d4_train_640"
+    NUM_VIEWS = 4
+
+
+class TrilinearConfig(FlagshipConfig):
+    NAME = "flagship_trilinear_640"
+    TRILINEAR_REPROJECTION = True
+
+
+class Trilinear256(Flagship256):
+    NAME = "flagship_trilinear_256"
+    TRILINEAR_REPROJECTION = True
+
+
+class Trilinear256Train(Flagship256Train):
+    NAME = "flagship_trilinear_train_256"
+    TRILINEAR_REPROJECTION = True
+
+
+class DP256(Flagship256Train):
+    """The train-parity model with a global batch of 2 (one a rank)."""
+    NAME = "dp_train_256"
+    GPU_COUNT = 2
+
+
+class DP640(FlagshipTrainConfig):
+    """The flagship training config with a global batch of 2, 2 steps."""
+    NAME = "dp_train_640"
+    GPU_COUNT = 2
+    STEPS_PER_EPOCH = 2
+
+
+PREFETCH_SEED = 100
+DP_DATA_SEED = 1          # a 256^2 batch of scenes with 4 and 3 positives
+# (e) with TRAIN_BN, in float32: a conv bias before a batch-statistics
+# BatchNorm has an exact gradient of zero, so its computed gradient is
+# rounding alone and is left out (`rounding_only`, a rule on the
+# reference gradient: such a bias's largest magnitude reads at most 1e-5
+# of its weight gradient's, every other bias's at least 0.10). The other
+# gradients, normalised as phase 7's, are held to DP_BN_GRAD_TOL for all
+# but GRAD_FLIP_SHARE of the tensors, and their difference's norm to
+# DP_BN_NORM_TOL of theirs. Readings (NVIDIA H100 80GB HBM3, 700 W): 95%
+# of the tensors within 0.048, the norm 0.0091; with the BatchNorm sums'
+# backward all-reduce dropped (the planted fault), 0.58 and 0.31.
+ZERO_GRAD_REL = 1e-2
+DP_BN_GRAD_TOL = 0.1
+DP_BN_NORM_TOL = 2e-2
+KILL_BOUND_S = 15.0       # a killed prefetch worker surfaces within this
+REMAT_LOSS_REL = 1e-3     # REMAT on vs off: the same forward in bf16
+
+
+def _bn_buffers(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def _moved(before, model):
+    """The BatchNorm statistics of `model` that differ from `before`, by
+    top-level module."""
+    after = _bn_buffers(model)
+    out = {}
+    for n, t in before.items():
+        top = n.split(".")[0].rsplit("_p", 1)[0]
+        moved, total = out.get(top, (0, 0))
+        out[top] = (moved + (not torch.equal(t, after[n])), total + 1)
+    return out
+
+
+def train_options_bn_remat():
+    """(a) TRAIN_BN + REMAT at the flagship: 3 steps through
+    compat.MaskRCNN.train; every BatchNorm's statistics move; a "heads"
+    step moves the frozen backbone's; a validation step moves none; the
+    kernels launch once a level a step, forward and backward, none in a
+    recomputation. Returns (launches, numbers)."""
+    cfg = BNRematTrainConfig()
+    ds = SyntheticMultiViewDataset(num_scenes=4, num_views=2, image_size=640,
+                                   num_classes=cfg.NUM_CLASSES, seed=0)
+    losses = {}
+    with tempfile.TemporaryDirectory(dir="build") as model_dir:
+        eng = MaskRCNN("training", cfg, model_dir)
+        before = _bn_buffers(eng.model)
+        reset_counts()
+        eng.train(ds, None, cfg.LEARNING_RATE, 1, "all",
+                  custom_callbacks=[losses.__setitem__], prefetch_threads=2)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        n = 3 * cfg.STEPS_PER_EPOCH
+        expect = expected(unproject=n, unproject_bwd=n, reproject=n,
+                          reproject_bwd=n)
+        variants = check_variants("bn_remat", launches)
+        if launches != expect:
+            raise RuntimeError(f"bn_remat launches {launches} != {expect}")
+        check_trained(losses, eng.model)
+        moved = _moved(before, eng.model)
+        if any(m != t for m, t in moved.values()):
+            raise RuntimeError(f"TRAIN_BN left statistics unmoved: {moved}")
+
+        mask = trainable_mask(eng.model, "heads")
+        for name, p in eng.model.named_parameters():
+            p.requires_grad_(mask[name])
+        opt = make_optimizer([p for n_, p in eng.model.named_parameters()
+                              if mask[n_]], cfg.LEARNING_RATE,
+                             cfg.LEARNING_MOMENTUM)
+        batch = eng.to_device(make_batch(ds, cfg, rnd_state=7))
+        before = _bn_buffers(eng.model)
+        frozen = {n_: p.detach().clone()
+                  for n_, p in eng.model.backbone.named_parameters()}
+        train_step(eng.model, opt, batch, cfg, mask,
+                   torch.Generator(DEV).manual_seed(1))
+        heads_moved = _moved(before, eng.model)
+        if heads_moved["backbone"][0] != heads_moved["backbone"][1] or any(
+                not torch.equal(p, frozen[n_])
+                for n_, p in eng.model.backbone.named_parameters()):
+            raise RuntimeError(f"a heads step moved the frozen backbone or "
+                               f"not its statistics: {heads_moved}")
+
+        before = _bn_buffers(eng.model)
+        reset_counts()
+        vals = val_step(eng.model, batch, cfg,
+                        torch.Generator(DEV).manual_seed(2))
+        val_launches = read_counts()
+        if val_launches != expected(unproject=3, reproject=3) or any(
+                m for m, _ in _moved(before, eng.model).values()):
+            raise RuntimeError(f"the validation step launched "
+                               f"{val_launches} or wrote statistics")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"validation losses not finite: {vals}")
+        say("bn_remat", launches=launches, expected=expect,
+            variants=variants, moved=json.dumps(moved),
+            heads_step_moved=json.dumps(heads_moved),
+            val_launches=val_launches,
+            losses=json.dumps(losses[1], separators=(",", ":")))
+        for n_, p in eng.model.named_parameters():
+            p.requires_grad_(True)
+        time_steps("bn_remat", eng, ds, cfg)
+    return launches, {"losses": losses[1], "val_losses": vals}
+
+
+def train_options_remat_memory():
+    """(b) The 4-view conv3d step at 640^2 in bf16, REMAT off then on,
+    from the same weights, batch and priorities: the peak device memory
+    of a step after a warm-up step, the step time, the first step's
+    losses."""
+    ds = SyntheticMultiViewDataset(num_scenes=2, num_views=4, image_size=640,
+                                   num_classes=Conv4TrainConfig.NUM_CLASSES,
+                                   seed=0)
+    host = make_batch(ds, Conv4TrainConfig(), rnd_state=99)
+    out = {}
+    for remat in (False, True):
+        cfg = Conv4TrainConfig()
+        cfg.REMAT = remat
+        eng = MaskRCNN("training", cfg, "build")
+        mask = trainable_mask(eng.model, "all")
+        opt = make_optimizer(eng.model.parameters(), cfg.LEARNING_RATE,
+                             cfg.LEARNING_MOMENTUM)
+        batch = eng.to_device(host)
+        gen = torch.Generator(DEV).manual_seed(1)
+        first = train_step(eng.model, opt, batch, cfg, mask, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            train_step(eng.model, opt, batch, cfg, mask, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        out["on" if remat else "off"] = {
+            "peak_gb": peak / 1e9, "step_peak_over_base_gb": (peak - base)
+            / 1e9, "step_ms": times, "step_ms_median": statistics.median(
+                times), "first_losses": first}
+        del eng, opt, batch
+        torch.cuda.empty_cache()
+    rel = max(abs(out["on"]["first_losses"][k] - v) / max(abs(v), 1e-6)
+              for k, v in out["off"]["first_losses"].items())
+    say("remat_memory", **{k: json.dumps(v, separators=(",", ":"))
+                           for k, v in out.items()}, loss_rel_err=rel)
+    if rel > REMAT_LOSS_REL:
+        raise RuntimeError(f"REMAT changed the losses by {rel}")
+    return dict(out, loss_rel_err=rel)
+
+
+def train_options_trilinear():
+    """(c) TRILINEAR_REPROJECTION: CPU vs GPU detections and a train step
+    at 256^2 in float32, then 3 requests at the flagship in bf16 (the
+    reprojection kernels never launch). Returns the requests' launches.
+    The train step trains stage "all" with the CPU-vs-H100 ReLU flips in
+    res4e's and res4f's bn2a (GRAD_TOL) pinned. Unpinned, they put
+    1.0-1.7e-3 errors on more than 5% of the backbone's tensors, worst
+    9.3e-3; pinned, 2 of 350 tensors pass 1e-3, worst 1.3e-3 (NVIDIA H100
+    80GB HBM3, 700 W): the flips, not the trilinear gather's backward."""
+    phase_parity(Trilinear256())
+    phase_train_parity(Trilinear256Train(), ("unproject", "unproject_bwd"),
+                       pin_flips=True)
+    return run_requests("trilinear_main", TrilinearConfig(),
+                        {"unproject": 3})
+
+
+def train_options_prefetch():
+    """(d) Two spawned ProcessPrefetcher workers feed 3 flagship steps;
+    each batch equals make_batch for its seed; a SIGKILLed worker
+    surfaces as PrefetchError within KILL_BOUND_S."""
+    cfg = FlagshipTrainConfig()
+    ds = SyntheticMultiViewDataset(num_scenes=4, num_views=2, image_size=640,
+                                   num_classes=cfg.NUM_CLASSES, seed=0)
+    eng = MaskRCNN("training", cfg, "build")
+    mask = trainable_mask(eng.model, "all")
+    opt = make_optimizer(eng.model.parameters(), cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+    gen = torch.Generator(DEV).manual_seed(1)
+    t = time.perf_counter()
+    pf = ProcessPrefetcher(functools.partial(make_batch, ds, cfg),
+                           num_procs=2, seed=PREFETCH_SEED)
+    try:
+        waits, steps = [], []
+        for k in range(3):
+            t0 = time.perf_counter()
+            batch = next(pf)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            want = make_batch(ds, cfg, PREFETCH_SEED + k)
+            if set(batch) != set(want) or not all(
+                    np.array_equal(batch[key], v) for key, v in want.items()):
+                raise RuntimeError(f"prefetched batch {k} != make_batch")
+            t0 = time.perf_counter()
+            metrics = train_step(eng.model, opt, eng.to_device(batch), cfg,
+                                 mask, gen)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise RuntimeError(f"losses not finite: {metrics}")
+        first_batch_s = time.perf_counter() - t
+        os.kill(pf._procs[1].pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        try:
+            for _ in range(100):
+                next(pf)
+            raise RuntimeError("a killed prefetch worker went unnoticed")
+        except PrefetchError as e:
+            detect_s = time.perf_counter() - t0
+            error = str(e).splitlines()[0]
+        if detect_s > KILL_BOUND_S:
+            raise RuntimeError(f"the killed worker took {detect_s} s")
+    finally:
+        pf.close()
+    alive = [p.pid for p in pf._procs if p.is_alive()]
+    if alive:
+        raise RuntimeError(f"prefetch workers still alive: {alive}")
+    out = {"batch_wait_ms": waits, "step_ms": steps,
+           "three_steps_s": first_batch_s, "kill_detected_s": detect_s,
+           "error": error}
+    say("prefetch", **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def _dp_step(cfg, group):
+    """One 256^2 train step from seeded weights on this rank's rows of a
+    2-scene batch (both rows without a group), ROI priorities from a CUDA
+    generator seeded 0. Returns (metrics, gradients, state) on the CPU."""
+    ds = SyntheticMultiViewDataset(num_scenes=2, num_views=2, image_size=256,
+                                   num_classes=cfg.NUM_CLASSES, seed=2)
+    host = make_batch(ds, cfg, rnd_state=DP_DATA_SEED)
+    rows = host_local_batch_slice(cfg.BATCH_SIZE)
+    local = {k: v if k == "anchors" else v[rows] for k, v in host.items()}
+    eng = MaskRCNN("training", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(3))
+    mask = trainable_mask(eng.model, "all")
+    opt = make_optimizer(eng.model.parameters(), cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+    metrics = train_step(eng.model, opt, eng.to_device(local), cfg, mask,
+                         torch.Generator(DEV).manual_seed(0), group)
+    return {"metrics": metrics,
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in eng.model.named_parameters()},
+            "state": {k: v.detach().cpu()
+                      for k, v in eng.model.state_dict().items()},
+            "positives": int((host["rpn_match"][rows] == 1).sum())}
+
+
+def _dp_rank(rank, port, outdir):
+    """A rank of phase 13 (e): the 256^2 float32 steps (frozen BN, then
+    TRAIN_BN), then 2 flagship steps through compat.MaskRCNN.train with
+    the step and the gradient all-reduce timed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo"):
+        raise RuntimeError("no process group")
+    try:
+        group = data_parallel_group()
+        for train_bn in (False, True):
+            cfg = DP256()
+            cfg.TRAIN_BN = train_bn
+            torch.save(_dp_step(cfg, group),
+                       os.path.join(outdir, f"dp256_{train_bn}_{rank}.pt"))
+        # the planted fault: the backward of the BatchNorm sums' all-reduce
+        # reduces nothing, which leaves every forward as it was
+        with mock.patch.object(parallel_dist._AllReduceSum, "backward",
+                               staticmethod(lambda ctx, g: (g, None))):
+            cfg = DP256()
+            cfg.TRAIN_BN = True
+            torch.save(_dp_step(cfg, group),
+                       os.path.join(outdir, f"dp256_fault_{rank}.pt"))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = DP640()
+        ds = SyntheticMultiViewDataset(num_scenes=4, num_views=2,
+                                       image_size=640,
+                                       num_classes=cfg.NUM_CLASSES, seed=0)
+        steps, reduces = [], []
+        original_step, original_reduce = engine.train_step, \
+            step_module.all_reduce_gradients
+
+        def timed_reduce(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            original_reduce(*args, **kwargs)
+            torch.cuda.synchronize()
+            reduces.append((time.perf_counter() - t) * 1e3)
+
+        def timed_step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = original_step(*args, **kwargs)
+            steps.append((time.perf_counter() - t) * 1e3)
+            return out
+        engine.train_step, step_module.all_reduce_gradients = \
+            timed_step, timed_reduce
+        losses = {}
+        with tempfile.TemporaryDirectory(dir="build") as model_dir:
+            eng = MaskRCNN("training", cfg, model_dir)
+            eng.train(ds, None, cfg.LEARNING_RATE, 1, "all",
+                      custom_callbacks=[losses.__setitem__],
+                      prefetch_threads=1)
+            wrote = sorted(os.path.relpath(os.path.join(d, f), model_dir)
+                           for d, _, files in os.walk(model_dir)
+                           for f in files)
+        torch.save({"step_ms": steps, "all_reduce_ms": reduces,
+                    "losses": losses[1], "wrote": wrote},
+                   os.path.join(outdir, f"dp640_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rounding_only(grads):
+    """The biases whose gradient is zero but for rounding (a conv bias
+    before a batch-statistics BatchNorm): the largest magnitude under
+    ZERO_GRAD_REL of its layer's weight gradient's."""
+    return {n for n, g in grads.items() if n.endswith(".bias")
+            and n[:-4] + "weight" in grads
+            and float(g.abs().max()) < ZERO_GRAD_REL * float(
+                grads[n[:-4] + "weight"].abs().max())}
+
+
+def _dp_grad_case(ref, got, train_bn):
+    """The gradients of a 2-rank step against one process's, by phase 7's
+    rule with frozen BN; with TRAIN_BN, the `rounding_only` biases left
+    out, all but GRAD_FLIP_SHARE of the rest within DP_BN_GRAD_TOL and
+    their difference's norm within DP_BN_NORM_TOL of theirs."""
+    floor = 1e-6 * max(float(g.abs().max()) for g in ref.values())
+    errs = _grad_errs(ref, got, floor)
+    if not train_bn:
+        beyond = [n for n, e in errs.items() if e > GRAD_TOL]
+        return {"max_grad_err": max(errs.values()),
+                "beyond_1e_3": len(beyond), "tensors": len(errs),
+                "grads_agree": max(errs.values()) <= GRAD_FLIP_TOL
+                and len(beyond) <= GRAD_FLIP_SHARE * len(errs)}
+    zero = rounding_only(ref)
+    live = sorted(set(ref) - zero)
+    ratio = {n[:-6] + "bias": float(ref[n[:-6] + "bias"].abs().max())
+             / float(g.abs().max())
+             for n, g in ref.items() if n.endswith(".weight")
+             and n[:-6] + "bias" in ref and float(g.abs().max()) > 0}
+    e = np.array([errs[n] for n in live])
+    norm = (sum(float((got[n] - ref[n]).double().pow(2).sum())
+                for n in live)
+            / sum(float(ref[n].double().pow(2).sum()) for n in live)) ** .5
+    beyond = int((e > DP_BN_GRAD_TOL).sum())
+    worst = max(live, key=errs.get)
+    return {"tensors": len(errs), "rounding_only": len(zero),
+            "rounding_only_max_ratio": max(ratio[n] for n in zero),
+            "kept_bias_min_ratio": min(r for n, r in ratio.items()
+                                       if n not in zero),
+            "rounding_only_max_err": max(errs[n] for n in zero),
+            "median_grad_err": float(np.median(e)),
+            "p95_grad_err": float(np.quantile(e, 0.95)),
+            "max_grad_err": errs[worst], "worst_tensor": worst,
+            "beyond_tol": beyond, "global_rel_err": norm,
+            "grads_agree": beyond <= GRAD_FLIP_SHARE * len(live)
+            and norm <= DP_BN_NORM_TOL}
+
+
+def train_options_data_parallel():
+    """(e) Two ranks on the card over gloo, spawned here: at 256^2 in
+    float32 (TF32 off) one step with frozen BN and one with TRAIN_BN,
+    each rank bit-equal to the other and held to the single-process
+    batch-2 step, and a TRAIN_BN step with a planted fault that the
+    gradient rule must refuse; then 2 flagship steps in bf16, timed."""
+    ctx = multiprocessing.get_context("spawn")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = {}
+    with tempfile.TemporaryDirectory(dir="build") as outdir:
+        t = time.perf_counter()
+        procs = [ctx.Process(target=_dp_rank, args=(r, port, outdir))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"data-parallel ranks exited "
+                               f"{[p.exitcode for p in procs]}")
+        out["ranks_s"] = time.perf_counter() - t
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for train_bn in (False, True):
+            cfg = DP256()
+            cfg.TRAIN_BN = train_bn
+            ranks = [torch.load(os.path.join(outdir,
+                                              f"dp256_{train_bn}_{r}.pt"))
+                     for r in range(2)]
+            if ranks[0]["positives"] == ranks[1]["positives"]:
+                raise RuntimeError("the ranks hold equal positive counts")
+            if ranks[0]["metrics"] != ranks[1]["metrics"] or any(
+                    not torch.equal(t_, ranks[1][key][n])
+                    for key in ("grads", "state")
+                    for n, t_ in ranks[0][key].items()):
+                raise RuntimeError(f"ranks differ (TRAIN_BN {train_bn})")
+            ref, got = _dp_step(cfg, None), ranks[0]
+            loss_err = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                           for k, v in ref["metrics"].items())
+            stats = {n: t_ for n, t_ in ref["state"].items()
+                     if n.endswith(("running_mean", "running_var"))}
+            stat_errs = _grad_errs(stats, {n: got["state"][n]
+                                           for n in stats}, 1e-30)
+            case = {"positives": [r["positives"] for r in ranks],
+                    "max_loss_rel_err": loss_err,
+                    "max_stat_err": max(stat_errs.values()),
+                    **_dp_grad_case(ref["grads"], got["grads"], train_bn)}
+            out[f"train_bn_{train_bn}"] = case
+            say("data_parallel", train_bn=train_bn, **case)
+            if loss_err > 1e-4 or max(stat_errs.values()) > 1e-4 \
+                    or not case["grads_agree"]:
+                raise RuntimeError(f"2 ranks != 1 process (TRAIN_BN "
+                                   f"{train_bn}): {case}")
+        # ref: the single-process TRAIN_BN step, the loop's last
+        fault = _dp_grad_case(
+            ref["grads"], torch.load(os.path.join(
+                outdir, "dp256_fault_0.pt"))["grads"], True)
+        out["planted_fault"] = fault
+        say("data_parallel", planted_fault="bn_sums_backward_not_reduced",
+            **fault)
+        if fault["grads_agree"]:
+            raise RuntimeError(f"the TRAIN_BN gradient rule passes a "
+                               f"dropped all-reduce: {fault}")
+        flagship = [torch.load(os.path.join(outdir, f"dp640_{r}.pt"))
+                    for r in range(2)]
+    if flagship[0]["losses"] != flagship[1]["losses"] or not all(
+            np.isfinite(v) for v in flagship[0]["losses"].values()):
+        raise RuntimeError(f"flagship ranks' losses: {flagship}")
+    if flagship[1]["wrote"] or not flagship[0]["wrote"]:
+        raise RuntimeError(f"rank 0 alone writes: {flagship}")
+    steps = flagship[0]["step_ms"]
+    reduce_ms = flagship[0]["all_reduce_ms"]
+    out["flagship"] = {
+        "step_ms": steps, "all_reduce_ms": reduce_ms,
+        "all_reduce_share": [r / s_ for r, s_ in zip(reduce_ms, steps)],
+        "rank1_step_ms": flagship[1]["step_ms"],
+        "losses": flagship[0]["losses"], "rank0_wrote": flagship[0]["wrote"]}
+    say("data_parallel", flagship=json.dumps(out["flagship"]))
+    return out
+
+
+def phase_train_options():
+    """Phase 13; returns the launch counts of (a)'s training and (c)'s
+    requests."""
+    t = time.perf_counter()
+    bn_launches, bn_numbers = train_options_bn_remat()
+    remat = train_options_remat_memory()
+    tri_launches = train_options_trilinear()
+    prefetch = train_options_prefetch()
+    dp = train_options_data_parallel()
+    print(json.dumps({"phase": "train_options", "bn_remat": bn_numbers,
+                      "remat_memory": remat, "prefetch": prefetch,
+                      "data_parallel": dp,
+                      "launches": {"bn_remat_train": bn_launches,
+                                   "trilinear_inference": tri_launches},
+                      "seconds": time.perf_counter() - t}), flush=True)
+    return bn_launches, tri_launches
+
+
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -2111,6 +2690,8 @@ def main():
     paths["xformer_inference"], paths["xformer_train"] = phase_xformer()
     paths["cli_train"], paths["cli_evaluate"] = phase_cli()
     paths["serve"] = phase_serve(record)
+    paths["bn_remat_train"], paths["trilinear_inference"] = \
+        phase_train_options()
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

@@ -12,12 +12,21 @@ Differences from the JAX command line:
     IMAGE_META_SIZE, vsize, vsize_z) instead of letting the config's
     re-initialisation overwrite it without a word;
   * `--model coco` goes through `MaskRCNN.load_weights(h5, exclude=...)`;
-  * not ported yet: the `visualize` command and the multi-host flags
-    (`--coordinator`, `--num-processes`, `--process-id`).
+  * the multi-process flags (`--coordinator`, `--num-processes`,
+    `--process-id`, or torchrun's or SLURM's environment) start data
+    parallelism over torch.distributed (parallel/distributed.py): gloo
+    for `--device cpu` or where torchrun or SLURM put more processes on
+    a host than it has GPUs, else NCCL; each process on the GPU of its
+    local rank; rank 0 alone writes checkpoints and logs;
+  * not ported yet: the `visualize` command.
 
 Usage:
   python -m mulit_view_object_detection_torch.cli.interior_multi train \
       --dataset /path/to/InteriorNet/HD7 --model coco --logs ./logs
+  # two processes (run each; or torchrun --nproc-per-node 2 ... train ...)
+  python -m mulit_view_object_detection_torch.cli.interior_multi train \
+      --dataset ... --coordinator 127.0.0.1:29500 --num-processes 2 \
+      --process-id 0
   python -m mulit_view_object_detection_torch.cli.interior_multi evaluate \
       --dataset /path/to/InteriorNet/HD7 --model last --logs ./logs
 """
@@ -29,6 +38,7 @@ import ast
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from ..compat import MaskRCNN
 from ..config import Config
@@ -37,6 +47,7 @@ from ..data.generator import load_image_gt
 from ..data.interiornet import InteriorNetDataset
 from ..data.molding import resize_image
 from ..eval.metrics import compute_ap, compute_ap_range
+from ..parallel.distributed import init_distributed, local_device
 
 DEFAULT_LOGS_DIR = "logs"
 
@@ -282,10 +293,26 @@ def main(argv=None):
     parser.add_argument("--iou-range", action="store_true",
                         help="evaluate COCO-style mAP@0.5:0.95 instead of "
                              "mAP@0.5")
+    # multi-process data parallelism (one process per GPU, or several on
+    # the CPU): also started by torchrun's or SLURM's environment with no
+    # flags; see parallel/distributed.py
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0, where the processes "
+                             "meet")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
-    if args.command == "train":
-        return cmd_train(args)
-    return cmd_evaluate(args)
+    parallel = init_distributed(args.coordinator, args.num_processes,
+                                args.process_id, device=args.device)
+    if parallel:
+        args.device = str(local_device(args.device))
+    try:
+        if args.command == "train":
+            return cmd_train(args)
+        return cmd_evaluate(args)
+    finally:
+        if parallel:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

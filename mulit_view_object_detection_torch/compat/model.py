@@ -15,7 +15,9 @@ initialisation scheme drawn from seed 0 (the JAX engine starts from
 PRNGKey(0)), and can come from the JAX package's flax variables
 (`load_flax_variables`) or a seeded `init_weights`. With FOLD_BN the
 inference calls run a BN-folded copy of the model (`inference_model`);
-training and `save_weights` keep the unfolded one.
+training and `save_weights` keep the unfolded one. In a data-parallel
+run (`parallel.init_distributed` called before the engine is built),
+`train` trains on every process together (see its docstring).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config  # noqa: F401  (re-export)
 from ..data.generator import BatchPrefetcher, make_batch
@@ -37,6 +40,8 @@ from ..models.detector import MaskRCNN as _Model
 from ..ops.anchors import get_anchors
 from ..ops.boxes import denorm_boxes_np, norm_boxes_np
 from ..ops.image_meta import compose_image_meta
+from ..parallel.distributed import (broadcast_module, data_parallel_group,
+                                    host_local_batch_slice)
 from ..train.checkpoint import (latest_step, restore_checkpoint,
                                 save_checkpoint)
 from ..train.optim import make_optimizer
@@ -238,8 +243,12 @@ class MaskRCNN:
         (utils/bn_fold.py), made on the engine's device (a second set of
         weights there) and made again whenever a weight of the model has
         changed since (load_weights, load_flax_variables, init_weights,
-        train, or any other in-place write); else the model itself."""
-        if not self.config.FOLD_BN:
+        train, or any other in-place write); else the model itself, and
+        with TRAIN_BN and BN_EVAL_BATCH_STATS too (a folded BatchNorm
+        has no batch statistics)."""
+        cfg = self.config
+        if not cfg.FOLD_BN or (cfg.TRAIN_BN and getattr(
+                cfg, "BN_EVAL_BATCH_STATS", False)):
             return self.model
         key = tuple((id(t), t._version) for t in itertools.chain(
             self.model.parameters(), self.model.buffers()))
@@ -414,11 +423,27 @@ class MaskRCNN:
         the engine's sampling generator. Each epoch's mean metrics go to
         `log_dir`: a line of `metrics.jsonl` and a TensorBoard scalar
         event at step epoch + 1, as in the JAX engine, and a printed
-        line."""
+        line.
+
+        Data parallelism: with a process group of more than one process
+        (`parallel.init_distributed`), each process loads its share
+        BATCH_SIZE / processes of every batch (data seeds offset by
+        rank * 1000003, as in the JAX engine), starts from rank 0's
+        weights, and steps with the global batch's gradient; the ROI
+        priorities come from the sampling generator, the same on every
+        rank. Every rank reports the global losses; rank 0 alone writes
+        checkpoints, metrics.jsonl and the TensorBoard events."""
         if self.mode != "training":
             raise ValueError("create the engine in training mode to train")
         cfg = self.config
         model = self.model
+        group = data_parallel_group()
+        rank = 0 if group is None else dist.get_rank(group)
+        rows = host_local_batch_slice(cfg.BATCH_SIZE)
+        local_bs = rows.stop - rows.start
+        host_off = rank * 1000003
+        if group is not None:
+            broadcast_module(model, group)
         mask = trainable_mask(model, layers)
         for name, p in model.named_parameters():
             p.requires_grad_(mask[name])
@@ -427,31 +452,37 @@ class MaskRCNN:
             learning_rate, cfg.LEARNING_MOMENTUM)
         with_depth = bool(cfg.TRANSFORMER)
         prefetcher = BatchPrefetcher(
-            lambda seed: make_batch(train_dataset, cfg, rnd_state=seed,
+            lambda seed: make_batch(train_dataset, cfg,
+                                    rnd_state=seed + host_off,
                                     with_depth=with_depth,
-                                    augmentation=augmentation),
+                                    augmentation=augmentation,
+                                    batch_size=local_bs),
             num_threads=prefetch_threads)
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
-        jsonl = MetricsLogger(self.log_dir)
-        tb = TBEventWriter(self.log_dir)
+        writer = rank == 0
+        if writer:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            jsonl = MetricsLogger(self.log_dir)
+            tb = TBEventWriter(self.log_dir)
         try:
             for epoch in range(self.epoch, epochs):
                 acc = {}
                 for _ in range(cfg.STEPS_PER_EPOCH):
                     metrics = train_step(model, optimizer,
                                          self.to_device(next(prefetcher)),
-                                         cfg, mask, self._sampling)
+                                         cfg, mask, self._sampling, group)
                     for k, v in metrics.items():
                         acc.setdefault(k, []).append(v)
                 means = {k: float(np.mean(v)) for k, v in acc.items()}
                 if val_dataset is not None:
                     vacc = {}
                     for vstep in range(cfg.VALIDATION_STEPS):
-                        vbatch = make_batch(val_dataset, cfg,
-                                            rnd_state=epoch * 10007 + vstep,
-                                            with_depth=with_depth)
+                        vbatch = make_batch(
+                            val_dataset, cfg,
+                            rnd_state=epoch * 10007 + vstep + host_off,
+                            with_depth=with_depth, batch_size=local_bs)
                         for k, v in val_step(model, self.to_device(vbatch),
-                                             cfg, self._sampling).items():
+                                             cfg, self._sampling,
+                                             group).items():
                             vacc.setdefault(k, []).append(v)
                     means.update({f"val_{k}": float(np.mean(v))
                                   for k, v in vacc.items()})
@@ -459,9 +490,11 @@ class MaskRCNN:
                 print(f"epoch {epoch + 1}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in sorted(means.items())),
                     flush=True)
-                jsonl.log(epoch + 1, **means)
-                tb.add_scalars(epoch + 1, means)
-                if (epoch + 1) % save_every_epochs == 0 or epoch + 1 == epochs:
+                if writer:
+                    jsonl.log(epoch + 1, **means)
+                    tb.add_scalars(epoch + 1, means)
+                if writer and ((epoch + 1) % save_every_epochs == 0
+                               or epoch + 1 == epochs):
                     save_checkpoint(self.checkpoint_dir, model, optimizer,
                                     step=epoch + 1)
                 if custom_callbacks:
@@ -469,6 +502,10 @@ class MaskRCNN:
                         cb(epoch + 1, means)
         finally:
             prefetcher.close()
-            jsonl.close()
-            tb.close()
+            if writer:
+                jsonl.close()
+                tb.close()
+        if group is not None:
+            # the other ranks may read rank 0's checkpoint from here on
+            dist.barrier(group)
         self.epoch = max(self.epoch, epochs)

@@ -250,13 +250,12 @@ class Config:
     # TPU-native knobs (no reference analog)
     # ------------------------------------------------------------------
     COMPUTE_DTYPE = "float32"   # "bfloat16" for MXU-friendly inference/training
-    REMAT = False               # rematerialize backbone blocks + voxel fusion
-                                # in the backward pass. Measured NEUTRAL at the
-                                # reference config (19.5 vs 19.8 steps/s —
-                                # BENCH_NOTES): XLA already schedules near the
-                                # HBM floor there. Enable for memory-constrained
-                                # configs (V=4, bigger grids/batches) where the
-                                # activation footprint, not step time, binds.
+    REMAT = False               # in training, recompute each backbone block
+                                # and each level's GridFusion and
+                                # DepthCollapse in the backward pass
+                                # (torch.utils.checkpoint): less activation
+                                # memory for more compute, for configs bound
+                                # by memory (4 views, larger grids/batches)
     UINT8_IMAGE_TRANSFER = False  # ship batch["images"] host->device as raw
                                 # resized uint8 and mold (mean-subtract +
                                 # cast) ON DEVICE. 4x fewer bytes over
@@ -358,8 +357,9 @@ class Config:
 # layers, so the port runs the plain layers and refuses the flags.
 _TPU_LOWERINGS = ("PHASE_DECONV", "PHASE_DECONV_MASK", "ZFOLD_FUSION",
                   "STEM_S2D", "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT")
-# Paths the JAX package has and this port does not run yet.
-_NOT_YET = ("TRAIN_BN", "REMAT", "TRILINEAR_REPROJECTION", "VIEW_SHARDING")
+# The JAX package's view sharding: GSPMD placements with no counterpart
+# in the port yet (ROADMAP Queue 1, the next parallel slice).
+_NOT_YET = ("VIEW_SHARDING",)
 # GridFusion modes of the projected path (TRANSFORMER switches the
 # transformer fusion, not GRID_REAS)
 _PORTED_FUSIONS = ("add", "mean", "ident", "conv3d", "lstm3d")
@@ -371,13 +371,19 @@ def check_supported(cfg):
     Runs: single view, VANILLA, the projected multi-view path with every
     GridFusion mode (add, mean, ident, conv3d, lstm3d), and the
     transformer view fusion (TRANSFORMER); COMPUTE_DTYPE float32 or
-    bfloat16; the serving options FOLD_BN (inference runs a BN-folded
-    copy of the model, utils/bn_fold.py; training is unaffected),
-    UINT8_IMAGE_TRANSFER (uint8 images de-molded on the device) and
-    EXPOSE_FUSED_PYRAMID (the fused P2..P5 among the outputs).
-    USE_PALLAS is ignored (the CUDA kernels run whenever the tensors are
-    on the GPU). Refuses the TPU-only lowerings and the paths not ported
-    yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION, VIEW_SHARDING)."""
+    bfloat16; the training options TRAIN_BN (BatchNorms normalise with
+    batch statistics in training, and in inference too with
+    BN_EVAL_BATCH_STATS, read as the JAX package reads it, default
+    False), REMAT (backbone blocks and each level's GridFusion and
+    DepthCollapse recomputed in the backward pass) and
+    TRILINEAR_REPROJECTION (the fused grid sampled trilinearly, in
+    plain torch); the serving options FOLD_BN (inference runs a
+    BN-folded copy of the model, utils/bn_fold.py; training is
+    unaffected), UINT8_IMAGE_TRANSFER (uint8 images de-molded on the
+    device) and EXPOSE_FUSED_PYRAMID (the fused P2..P5 among the
+    outputs). USE_PALLAS is ignored (the CUDA kernels run whenever the
+    tensors are on the GPU). Refuses the TPU-only lowerings and
+    VIEW_SHARDING, not ported yet (ROADMAP Queue 1)."""
     for name in _TPU_LOWERINGS:
         if getattr(cfg, name, False):
             raise ValueError(
@@ -385,7 +391,10 @@ def check_supported(cfg):
                 f"PyTorch port runs the plain layers — set {name} = False")
     for name in _NOT_YET:
         if getattr(cfg, name, False):
-            raise ValueError(f"{name} is not ported to PyTorch yet")
+            raise ValueError(
+                f"{name} is not ported to PyTorch yet (ROADMAP Queue 1: "
+                f"the parallel slice after data parallelism); data "
+                f"parallelism over processes is parallel/distributed.py")
     if not cfg.TRANSFORMER and cfg.GRID_REAS not in _PORTED_FUSIONS:
         raise ValueError(
             f"GRID_REAS={cfg.GRID_REAS!r} is not a GridFusion mode; the "

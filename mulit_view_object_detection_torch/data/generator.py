@@ -1,8 +1,7 @@
 """Host-side input pipeline: GT loading and multi-view batch assembly.
 
 A copy of `mulit_view_object_detection_tpu/data/generator.py` (numpy, no
-jax; the port imports nothing of the JAX package), without the
-process-based prefetcher, which is not ported yet. For the same dataset
+jax; the port imports nothing of the JAX package). For the same dataset
 and seed it yields the same batches, bit for bit. It replaces the
 reference's single-threaded Python `data_generator` (model_multi.py:
 2065-2293, fit_generator workers=1) with:
@@ -14,7 +13,8 @@ reference's single-threaded Python `data_generator` (model_multi.py:
     normalized, masks instance-major [G, mh, mw], everything zero-padded to
     static shapes);
   * `BatchPrefetcher` — a thread-pool prefetch queue keeping the device
-    fed.
+    fed;
+  * `ProcessPrefetcher` — the same from worker processes, past the GIL.
 
 Error tolerance matches the reference (skip bad images, raise after 5
 consecutive failures, model_multi.py:2284-2293).
@@ -23,8 +23,11 @@ consecutive failures, model_multi.py:2284-2293).
 from __future__ import annotations
 
 import logging
+import multiprocessing
 import queue
+import sys
 import threading
+import traceback
 
 import numpy as np
 
@@ -322,5 +325,126 @@ class BatchPrefetcher:
 
 
 class PrefetchError(RuntimeError):
-    """Raised by BatchPrefetcher when its workers can no longer produce
-    batches (a worker hit the consecutive-failure cap)."""
+    """Raised by BatchPrefetcher and ProcessPrefetcher when their workers
+    can no longer produce batches (a worker hit the consecutive-failure
+    cap, or a worker process died)."""
+
+
+# a worker's last message: (_ERROR_TAG, formatted traceback)
+_ERROR_TAG = "__prefetch_error__"
+# re-raise after 5 consecutive bad batches instead of spinning forever,
+# the reference generator's tolerance (model_multi.py:2284-2291)
+_MAX_CONSECUTIVE_FAILURES = 5
+_POLL_S = 0.5
+
+
+class ProcessPrefetcher:
+    """Process-based batch prefetcher (JAX generator.py:334-432): each
+    worker runs `make_fn(seed)` in its own interpreter, so batch assembly
+    scales past the GIL.
+
+    Workers start with the *spawn* method: forking a process that runs
+    threads (torch's, the trainer's) can deadlock. Spawn pickles
+    `make_fn` and re-imports the parent's main module in each worker, so
+    `make_fn` must be a module-level function of an importable module, or
+    a `functools.partial` over one, such as
+    `partial(make_batch, dataset, config)`, not a closure.
+
+    Worker i of n makes the batches of seeds seed + i, seed + i + n, ...
+    and sends each, a dict of numpy arrays, through a pipe of its own;
+    the consumer reads the pipes in turn, so the k-th batch is
+    make_fn(seed + k) whatever the workers' timing (the JAX prefetcher's
+    shared queue returns the same batches in arrival order). A worker
+    holds at most one finished batch while it waits for the consumer.
+    Workers never initialise CUDA: a worker that finds it initialised
+    after `make_fn` reports it as a failure. Batches reach the device in
+    the consumer.
+
+    Failures: a worker that fails `_MAX_CONSECUTIVE_FAILURES` times in a
+    row sends its traceback and exits; the consumer raises it as
+    PrefetchError. While waiting, the consumer also polls the worker it
+    waits for, so a worker that died without a word (SIGKILL, the OOM
+    killer) raises PrefetchError within `_POLL_S` seconds of its pipe
+    running dry, or at once if it died in the middle of a batch.
+    `close()` closes the pipes (a worker blocked in sending sees a broken
+    pipe and exits), then joins the workers, terminating any that do not
+    exit."""
+
+    def __init__(self, make_fn, num_procs=4, seed=0):
+        ctx = multiprocessing.get_context("spawn")
+        self._conns, self._procs = [], []
+        self._next = 0
+        for i in range(num_procs):
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_process_prefetch_worker,
+                               args=(make_fn, send, seed + i, num_procs),
+                               daemon=True)
+            proc.start()
+            send.close()          # the worker holds the only writer now
+            self._conns.append(recv)
+            self._procs.append(proc)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        i = self._next
+        conn, proc = self._conns[i], self._procs[i]
+        while not conn.poll(_POLL_S):
+            if not proc.is_alive():
+                raise PrefetchError(
+                    f"prefetch worker {i} died (exit code {proc.exitcode}) "
+                    f"before sending a batch or an error")
+        try:
+            item = conn.recv()
+        except (EOFError, OSError):
+            raise PrefetchError(
+                f"prefetch worker {i} died in the middle of a batch") from None
+        if isinstance(item, tuple) and len(item) == 2 \
+                and item[0] == _ERROR_TAG:
+            raise PrefetchError(f"prefetch worker {i} failed:\n" + item[1])
+        self._next = (i + 1) % len(self._conns)
+        return item
+
+    def close(self):
+        """Stop the workers: close the pipes, join, terminate stragglers."""
+        for conn in self._conns:
+            conn.close()
+        for proc in self._procs:
+            proc.join(timeout=10.0)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10.0)
+
+
+def _cuda_initialized():
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.cuda.is_initialized()
+
+
+def _process_prefetch_worker(make_fn, conn, seed, stride):
+    """A ProcessPrefetcher worker: make_fn(seed), make_fn(seed + stride),
+    ... into `conn` until the consumer closes it."""
+    failures = 0
+    while True:
+        batch, error = None, None
+        try:
+            batch = make_fn(seed)
+            failures = 0
+        except Exception:  # noqa: BLE001 — reported to the consumer
+            log.exception("prefetch worker failed")
+            failures += 1
+            if failures >= _MAX_CONSECUTIVE_FAILURES:
+                error = traceback.format_exc()
+        if _cuda_initialized():
+            error = (f"make_fn({seed}) initialised CUDA in a prefetch "
+                     f"worker: batches must be numpy arrays")
+        seed += stride
+        if batch is None and error is None:     # a failure below the cap
+            continue
+        try:
+            conn.send(batch if error is None else (_ERROR_TAG, error))
+        except (BrokenPipeError, OSError):      # the consumer closed it
+            return
+        if error is not None:
+            return

@@ -52,7 +52,8 @@ from ..kernels.unproject import unproject_features, unproject_features_fused
 from ..ops.boxes import norm_boxes
 from ..ops.detection import refine_detections
 from ..ops.image_meta import parse_image_meta
-from ..ops.projection import unproject_rays, voxel_grid_points
+from ..ops.projection import (project_grid_trilinear, unproject_rays,
+                              voxel_grid_points)
 from ..ops.proposals import generate_proposals
 from ..ops.roi_align import pyramid_roi_align
 from ..ops.targets import detection_targets_batch
@@ -60,7 +61,7 @@ from .fpn import FPN
 from .fusion import DepthCollapse, GridFusion
 from .heads import ClassifierHead, MaskHead
 from .layers import DenseGeneral, set_compute_dtype
-from .resnet import BatchNorm, ResNet
+from .resnet import BatchNorm, BatchStats, ResNet, checkpointed
 from .rpn import RPNHead
 from .transformer import LayerNorm, ViewFusionTransformer
 
@@ -171,7 +172,7 @@ class MaskRCNN(nn.Module):
                 voxel_grid_points(self.config)).to(device)
         return self._grid_pts[device]
 
-    def forward(self, batch, training=False):
+    def forward(self, batch, training=False, stats=None):
         """batch: images [B, V, H, W, 3] molded float, or resized uint8
         pixels (UINT8_IMAGE_TRANSFER), de-molded here; image_meta
         [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
@@ -183,11 +184,24 @@ class MaskRCNN(nn.Module):
         with XFORMER_DROPOUT > 0) dropout_generator. All tensors on the
         model's device. Returns the JAX module's outputs for the mode
         (with EXPOSE_FUSED_PYRAMID also fused_p2..fused_p5 [B, h, w, C]).
-        Inference computes no gradient."""
-        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
-            return self._forward(batch, training)
+        Inference computes no gradient.
 
-    def _forward(self, batch, training):
+        `stats`: the BatchStats that TRAIN_BN's batch statistics go to
+        (its group makes them the global batch's); the caller commits
+        them or not. With TRAIN_BN and none given, a fresh one, dropped.
+        Ignored where the BatchNorms are frozen: without TRAIN_BN, and in
+        inference without BN_EVAL_BATCH_STATS."""
+        cfg = self.config
+        train_bn = bool(cfg.TRAIN_BN) and (
+            training or bool(getattr(cfg, "BN_EVAL_BATCH_STATS", False)))
+        if not train_bn:
+            stats = None
+        elif stats is None:
+            stats = BatchStats()
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            return self._forward(batch, training, stats)
+
+    def _forward(self, batch, training, stats):
         cfg = self.config
         images = batch["images"]
         b, v, h, w, _ = images.shape
@@ -200,10 +214,12 @@ class MaskRCNN(nn.Module):
             # the host's mold_image on the same uint8 pixels
             x = x.float() - self._mean_pixel(x.device)
         x = x.permute(0, 3, 1, 2)
-        _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype))
+        remat = bool(cfg.REMAT) and training
+        _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype), stats,
+                                          remat)
         levels = self.fpn(c2, c3, c4, c5)
         fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w),
-                                              training)
+                                              training, stats, remat)
 
         # RPN, zero levels constant-folded
         k = len(cfg.RPN_ANCHOR_RATIOS)
@@ -255,7 +271,7 @@ class MaskRCNN(nn.Module):
                 bbox_std_dev=np.asarray(cfg.BBOX_STD_DEV))
             pooled = pyramid_roi_align(rois, mrcnn_maps, (h, w),
                                        cfg.POOL_SIZE)
-            logits, probs, bbox = self.classifier_head(pooled)
+            logits, probs, bbox = self.classifier_head(pooled, stats)
             pooled_m = pyramid_roi_align(rois, mrcnn_maps, (h, w),
                                          cfg.MASK_POOL_SIZE)
             outputs.update({
@@ -266,13 +282,13 @@ class MaskRCNN(nn.Module):
                 "mrcnn_class_logits": logits,
                 "mrcnn_probs": probs,
                 "mrcnn_bbox": bbox,
-                "mrcnn_masks": self.mask_head(pooled_m),
+                "mrcnn_masks": self.mask_head(pooled_m, stats),
             })
             return outputs
 
         pooled = pyramid_roi_align(proposals, mrcnn_maps, (h, w),
                                    cfg.POOL_SIZE)
-        logits, probs, bbox = self.classifier_head(pooled)
+        logits, probs, bbox = self.classifier_head(pooled, stats)
         windows = norm_boxes(parse_image_meta(batch["image_meta"])["window"],
                              (h, w))
         detections = refine_detections(
@@ -288,13 +304,16 @@ class MaskRCNN(nn.Module):
             "mrcnn_probs": probs,
             "mrcnn_bbox": bbox,
             "detections": detections,
-            "mrcnn_masks": self.mask_head(pooled_m),
+            "mrcnn_masks": self.mask_head(pooled_m, stats),
         })
         return outputs
 
-    def _fuse_views(self, batch, levels, b, v, image_shape, training):
+    def _fuse_views(self, batch, levels, b, v, image_shape, training, stats,
+                    remat):
         """levels: 5 maps [B*V, C, h, w]. Returns ([P2..P6] as
-        [B, C, h, w], zero level indices)."""
+        [B, C, h, w], zero level indices). Under `remat` each level's
+        GridFusion and DepthCollapse is checkpointed; the unprojection
+        and reprojection between them run once."""
         cfg = self.config
         if v == 1 and not self.transformer:
             return levels, set()
@@ -332,11 +351,21 @@ class MaskRCNN(nn.Module):
                                                image_shape, grid_pts,
                                                grid_shape, relu=True)
                 grids = vox.permute(0, 4, 1, 2, 3)          # [B,V*C,X,Y,Z]
-            fused = getattr(self, f"grid_fusion_p{li + 2}")(grids)
-            rays = project_grid_nearest(
-                fused.permute(0, 2, 3, 4, 1).contiguous(), kmat,
-                image_shape, p.shape[3], cfg.samples, cfg)
-            out.append(getattr(self, f"depth_collapse_p{li + 2}")(rays))
+            fusion = getattr(self, f"grid_fusion_p{li + 2}")
+            collapse = getattr(self, f"depth_collapse_p{li + 2}")
+            fused = (checkpointed(fusion, grids, stats) if remat
+                     else fusion(grids, stats))
+            if cfg.TRILINEAR_REPROJECTION:
+                # in float32, as the JAX _reproject_collapse casts it
+                rays = project_grid_trilinear(
+                    fused.permute(0, 2, 3, 4, 1).float(), kmat, image_shape,
+                    p.shape[3], cfg.samples, cfg).to(self.compute_dtype)
+            else:
+                rays = project_grid_nearest(
+                    fused.permute(0, 2, 3, 4, 1).contiguous(), kmat,
+                    image_shape, p.shape[3], cfg.samples, cfg)
+            out.append(checkpointed(collapse, rays, stats) if remat
+                       else collapse(rays, stats))
         return out, set(self.zero_levels)
 
     def _fuse_p5(self, batch, p5, image_shape, training):

@@ -111,21 +111,23 @@ class GridFusion(nn.Module):
         elif mode not in ("add", "mean"):
             raise ValueError(f"unknown fusion mode {mode}")
 
-    def forward(self, x):
+    def forward(self, x, stats=None):
+        """`stats`: the BatchNorms' batch statistics (TRAIN_BN), or None
+        for frozen ones."""
         if self.mode == "mean":
             return x.mean(dim=1)
         if self.mode == "add":
-            return F.relu(self.fuse_bn(x.sum(dim=1)))
+            return F.relu(self.fuse_bn(x.sum(dim=1), stats))
         if self.mode == "ident":
-            return F.relu(self.fuse_bn(self.ident_conv(x)))
+            return F.relu(self.fuse_bn(self.ident_conv(x), stats))
         if self.mode == "lstm3d":
-            return F.relu(self.fuse_bn(self.convlstm(F.relu(x))))
+            return F.relu(self.fuse_bn(self.convlstm(F.relu(x)), stats))
         k, s = (3, 3, 3), (2, 2, 2)
-        conv1 = F.relu(self.bn1(self.down1(pad_same(x, k, s))))
-        conv2 = F.relu(self.bn2(self.down2(pad_same(conv1, k, s))))
-        deconv1 = F.relu(self.bn_up1(deconv_same(self.up1, conv2)))
+        conv1 = F.relu(self.bn1(self.down1(pad_same(x, k, s)), stats))
+        conv2 = F.relu(self.bn2(self.down2(pad_same(conv1, k, s)), stats))
+        deconv1 = F.relu(self.bn_up1(deconv_same(self.up1, conv2), stats))
         x = torch.cat([deconv1, conv1], dim=1)
-        return F.relu(self.bn_up2(deconv_same(self.up2, x)))
+        return F.relu(self.bn_up2(deconv_same(self.up2, x), stats))
 
 
 class DepthCollapse(nn.Module):
@@ -153,12 +155,12 @@ class DepthCollapse(nn.Module):
         self.pw2 = Conv2d(512, channels, 1)
         self.bn2 = BatchNorm(channels)
 
-    def forward(self, rays):
+    def forward(self, rays, stats=None):
         b, d, s1, s2, c = rays.shape
         if self.mode != "conv3d":
             x = rays.permute(0, 4, 1, 2, 3).reshape(b * c, d, s1, s2)
-            x = F.relu(self.bn(self.collapse(x)))        # [B*C, 1, S, S]
+            x = F.relu(self.bn(self.collapse(x), stats))  # [B*C, 1, S, S]
             return x.reshape(b, c, s1, s2)
         x = rays.permute(0, 4, 1, 2, 3).reshape(b, c * d, s1, s2)
-        x = F.relu(self.bn1(self.pw1(self.dw1(x))))
-        return F.relu(self.bn2(self.pw2(self.dw2(x))))
+        x = F.relu(self.bn1(self.pw1(self.dw1(x)), stats))
+        return F.relu(self.bn2(self.pw2(self.dw2(x)), stats))

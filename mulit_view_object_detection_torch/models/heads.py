@@ -37,11 +37,14 @@ class ClassifierHead(nn.Module):
         self.mrcnn_class_logits = Linear(fc_layers_size, num_classes)
         self.mrcnn_bbox_fc = Linear(fc_layers_size, num_classes * 4)
 
-    def forward(self, pooled):
-        """-> (logits [B, N, NC], probs [B, N, NC], bbox [B, N, NC, 4])."""
+    def forward(self, pooled, stats=None):
+        """-> (logits [B, N, NC], probs [B, N, NC], bbox [B, N, NC, 4]).
+        `stats`: the BatchNorms' batch statistics (TRAIN_BN), taken over
+        all B·N ROI rows, padding included, as the JAX heads do."""
         b, n = pooled.shape[:2]
-        x = F.relu(self.mrcnn_class_bn1(self.mrcnn_class_conv1(_fold(pooled))))
-        x = F.relu(self.mrcnn_class_bn2(self.mrcnn_class_conv2(x)))
+        x = F.relu(self.mrcnn_class_bn1(
+            self.mrcnn_class_conv1(_fold(pooled)), stats))
+        x = F.relu(self.mrcnn_class_bn2(self.mrcnn_class_conv2(x), stats))
         shared = x.reshape(b * n, -1)
         logits = self.mrcnn_class_logits(shared).reshape(
             b, n, self.num_classes).float()
@@ -65,14 +68,15 @@ class MaskHead(nn.Module):
                                                  conv_filters, 2, stride=2)
         self.mrcnn_mask = Conv2d(conv_filters, num_classes, 1)
 
-    def forward(self, pooled):
-        """-> masks [B, N, 2S, 2S, NC] (sigmoid, float32)."""
+    def forward(self, pooled, stats=None):
+        """-> masks [B, N, 2S, 2S, NC] (sigmoid, float32). `stats` as in
+        ClassifierHead."""
         b, n, s = pooled.shape[:3]
         x = _fold(pooled)
         for i in range(1, 5):
             conv = getattr(self, f"mrcnn_mask_conv{i}")
             bn = getattr(self, f"mrcnn_mask_bn{i}")
-            x = F.relu(bn(conv(x)))
+            x = F.relu(bn(conv(x), stats))
         x = F.relu(self.mrcnn_mask_deconv(x))
         x = torch.sigmoid(self.mrcnn_mask(x).float())
         return x.permute(0, 2, 3, 1).reshape(b, n, 2 * s, 2 * s, -1)

@@ -1,4 +1,4 @@
-"""ResNet-50/101 backbone, frozen BatchNorm and flax SAME padding.
+"""ResNet-50/101 backbone, BatchNorm and flax SAME padding.
 
 Port of `mulit_view_object_detection_tpu/models/resnet.py` (the
 reference's model.py:95-206), with the same layer names so converted
@@ -17,7 +17,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..parallel.distributed import all_reduce_sum
 from .layers import Conv2d
 
 BLOCK_COUNTS = {"resnet50": 3, "resnet101": 22}
@@ -40,20 +42,55 @@ def pad_same(x, kernel, stride, value=0.0):
     return F.pad(x, pads, value=value) if any(pads) else x
 
 
+MOMENTUM = 0.9     # of the running statistics, flax's nn.BatchNorm's
+
+
+class BatchStats:
+    """TRAIN_BN's mode for the BatchNorms of one forward (flax's
+    nn.BatchNorm(use_running_average=False)), and the statistics they
+    took.
+
+    A BatchNorm given one normalises its input with the input's own
+    statistics over every axis but the channel axis (N·H·W of a 2-D map,
+    B·X·Y·Z of a fusion grid, the B·N ROI rows of a head, padded ROIs
+    included), summed over the ranks of `group` when one is given, so
+    that they are the global batch's; it records (module, mean, biased
+    variance) in `records` and writes nothing. `commit()` writes them
+    into the running statistics once: a train step commits, a
+    validation step and BN_EVAL_BATCH_STATS inference do not."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.records = []
+
+    @torch.no_grad()
+    def commit(self):
+        """running = MOMENTUM * running + (1 - MOMENTUM) * batch, with the
+        biased variance, as flax updates its batch_stats."""
+        for bn, mean, var in self.records:
+            bn.running_mean.copy_(MOMENTUM * bn.running_mean
+                                  + (1 - MOMENTUM) * mean)
+            bn.running_var.copy_(MOMENTUM * bn.running_var
+                                 + (1 - MOMENTUM) * var)
+        self.records = []
+
+
 class BatchNorm(nn.Module):
-    """Frozen BatchNorm (running statistics), epsilon 1e-3 as the JAX
-    module's nn.BatchNorm (resnet.py:65-68). TRAIN_BN is not ported, so
-    it never updates its statistics.
+    """BatchNorm, epsilon 1e-3 as the JAX module's nn.BatchNorm
+    (resnet.py:63-68): frozen (running statistics), or, given a
+    `BatchStats` (TRAIN_BN), normalised with the batch's statistics.
 
     As in flax, its parameters and statistics stay float32 whatever the
-    compute dtype: F.batch_norm normalises a bfloat16 input in float32
-    and rounds once on output.
+    compute dtype: it normalises a bfloat16 input in float32 and rounds
+    once on output. Batch statistics are flax's too: sums of x and x^2 in
+    at least float32, the biased variance E[x^2] - E[x]^2 clipped at 0.
 
     Folded (utils/bn_fold.py::fold_bn_model, for inference) it takes one
     of two forms, with the same parameter and buffer names: "identity",
     where its affine went into the conv before it (it launches nothing),
     or "affine", x * weight + bias in the compute dtype (the JAX
-    `_AffineBN`, resnet.py:38-48)."""
+    `_AffineBN`, resnet.py:38-48). A folded BatchNorm has no batch
+    statistics mode: the JAX package folds only where not train_bn."""
 
     def __init__(self, channels, eps=1e-3):
         super().__init__()
@@ -71,16 +108,52 @@ class BatchNorm(nn.Module):
         self.form = form
         self.compute_dtype = dtype
 
-    def forward(self, x):
-        if self.form == "identity":
-            return x
-        if self.form == "affine":
+    def forward(self, x, stats=None):
+        if self.form != "batch_norm":
+            if stats is not None:
+                raise ValueError("a folded BatchNorm cannot normalise with "
+                                 "batch statistics")
+            if self.form == "identity":
+                return x
             dt = self.compute_dtype
             shape = (1, -1) + (1,) * (x.ndim - 2)
             return (x.to(dt) * self.weight.to(dt).view(shape)
                     + self.bias.to(dt).view(shape))
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if stats is None:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.ndim))
+        count = x32.new_full((1,), float(x32.numel() // x32.shape[1]))
+        sums = torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count])
+        if stats.group is not None:
+            sums = all_reduce_sum(sums, stats.group)
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
+        stats.records.append((self, mean.detach(), var.detach()))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = (x32 - mean.view(shape)) * (
+            torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def checkpointed(module, x, stats=None):
+    """module(x, stats) with its activations recomputed in the backward
+    pass (torch.utils.checkpoint, non-reentrant; JAX nn.remat). The
+    recomputation normalises as the forward did, and writes nothing: the
+    batch statistics come out of the checkpointed call, and only the
+    forward's go into `stats`."""
+    if stats is None:
+        return checkpoint(module, x, use_reentrant=False)
+
+    def run(x):
+        inner = BatchStats(stats.group)
+        return module(x, inner), inner.records
+
+    y, records = checkpoint(run, x, use_reentrant=False)
+    stats.records.extend(records)
+    return y
 
 
 class Bottleneck(nn.Module):
@@ -100,16 +173,20 @@ class Bottleneck(nn.Module):
             self.conv1 = Conv2d(cin, f3, 1, stride=stride)
             self.bn1 = BatchNorm(f3)
 
-    def forward(self, x):
-        y = F.relu(self.bn2a(self.conv2a(x)))
-        y = F.relu(self.bn2b(self.conv2b(y)))
-        y = self.bn2c(self.conv2c(y))
-        shortcut = self.bn1(self.conv1(x)) if self.conv_shortcut else x
+    def forward(self, x, stats=None):
+        y = F.relu(self.bn2a(self.conv2a(x), stats))
+        y = F.relu(self.bn2b(self.conv2b(y), stats))
+        y = self.bn2c(self.conv2c(y), stats)
+        shortcut = (self.bn1(self.conv1(x), stats) if self.conv_shortcut
+                    else x)
         return F.relu(y + shortcut)
 
 
 class ResNet(nn.Module):
-    """x [N, 3, H, W] molded images -> [C1, C2, C3, C4, C5]."""
+    """x [N, 3, H, W] molded images -> [C1, C2, C3, C4, C5]. `stats`: the
+    BatchNorms' batch statistics (TRAIN_BN), or None for frozen ones;
+    `remat`: each bottleneck recomputed in the backward pass (REMAT in
+    training, resnet.py:151,160)."""
 
     def __init__(self, architecture="resnet101", stage4_blocks=None):
         super().__init__()
@@ -137,14 +214,15 @@ class ResNet(nn.Module):
                 self.add_module(name, Bottleneck(cin, filters, stride, short))
             self.stage_names.append([spec[0] for spec in stage])
 
-    def forward(self, x):
+    def forward(self, x, stats=None, remat=False):
         y = self.conv1(F.pad(x, (3, 3, 3, 3)))
-        y = F.relu(self.bn_conv1(y))
+        y = F.relu(self.bn_conv1(y, stats))
         c1 = y = F.max_pool2d(pad_same(y, (3, 3), (2, 2), float("-inf")),
                               3, 2)
         outs = [c1]
         for names in self.stage_names:
             for name in names:
-                y = getattr(self, name)(y)
+                block = getattr(self, name)
+                y = checkpointed(block, y, stats) if remat else block(y, stats)
             outs.append(y)
         return outs

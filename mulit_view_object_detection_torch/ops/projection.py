@@ -109,8 +109,24 @@ def _ray_constants(device, image_h, proj_size, samples, vmin, vmax, vmin_z,
     iz = np.rint(zg).astype(np.int32)
     iz = np.where((iz >= 0) & (iz < nz), iz, -1).astype(np.int32)
     scale = tuple((float(vminv[k]), float(span[k]), float(nvoxv[k]))
-                  for k in range(2))
+                  for k in range(3))
     return rsz, pix, zt, scale, iz
+
+
+def _ray_coords(Kmat, image_shape, proj_size, samples, config, nx, ny, nz,
+                axes):
+    """Fractional grid coords [B, S_d, S*S] float32 along `axes` (0, 1, 2
+    for x, y, z) of every depth sample of every pixel ray, and the host
+    z index [S_d] (`_ray_constants`)."""
+    rsz, pix, zt, scale, iz = _ray_constants(
+        Kmat.device, image_shape[0], proj_size, samples, config.vmin,
+        config.vmax, config.vmin_z, config.vsize_z, config.vmax_z, nx, ny,
+        nz)
+    rays = torch.einsum("bij,jn->bin",
+                        torch.linalg.inv_ex(Kmat * rsz).inverse, pix)
+    coords = [(rays[:, k, None, :] * zt - scale[k][0]) / scale[k][1]
+              * scale[k][2] for k in axes]
+    return coords, iz
 
 
 def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
@@ -121,15 +137,49 @@ def reprojection_coords(Kmat, image_shape, proj_size, samples, config,
     reprojection kernel (model_multi.py:252-298). On the card it makes no
     host synchronisation: the constants are cached (`_ray_constants`)
     and the inverse is `inv_ex`'s, which checks nothing on the host."""
-    rsz, pix, zt, ((x0, xspan, xn), (y0, yspan, yn)), iz = _ray_constants(
-        Kmat.device, image_shape[0], proj_size, samples, config.vmin,
-        config.vmax, config.vmin_z, config.vsize_z, config.vmax_z, nx, ny,
-        nz)
-    rays = torch.einsum("bij,jn->bin",
-                        torch.linalg.inv_ex(Kmat * rsz).inverse, pix)
-    xg = (rays[:, 0, None, :] * zt - x0) / xspan * xn
-    yg = (rays[:, 1, None, :] * zt - y0) / yspan * yn
+    (xg, yg), iz = _ray_coords(Kmat, image_shape, proj_size, samples,
+                               config, nx, ny, nz, (0, 1))
     return xg, yg, iz.copy()
+
+
+def project_grid_trilinear(grid, Kmat, image_shape, proj_size, samples,
+                           config):
+    """The trilinear branch of the JAX `project_grid` (projection.py:
+    221-244, TRILINEAR_REPROJECTION): the grid [B, nx, ny, nz, C] sampled
+    at every depth sample of the main view's pixel rays ->
+    [B, samples, S, S, C]. x and y shift by -0.5 (their cells' centres
+    sit at index i + 0.5); z takes no shift (its range starts at the
+    first cell's centre, as the nearest path's rounding assumes). Eight
+    taps weighted wx·wy·wz, added in the JAX order; an out-of-range tap
+    adds zero and reads a clamped index. Plain torch on every device, as
+    XLA computes it in the JAX package; its gradient in the grid is
+    autograd's, the coordinates carry none."""
+    b, nx, ny, nz, c = grid.shape
+    with torch.no_grad():
+        (gx, gy, gz), _ = _ray_coords(Kmat, image_shape, proj_size,
+                                      samples, config, nx, ny, nz, (0, 1, 2))
+        f = (gx - 0.5, gy - 0.5, gz)
+        lo = [torch.floor(t) for t in f]
+        frac = [t - t0 for t, t0 in zip(f, lo)]
+        lo = [t.to(torch.int64) for t in lo]
+    flat = grid.reshape(b, nx * ny * nz, c)
+    out = None
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                with torch.no_grad():
+                    ix, iy, iz = lo[0] + dx, lo[1] + dy, lo[2] + dz
+                    w = ((frac[0] if dx else 1 - frac[0])
+                         * (frac[1] if dy else 1 - frac[1])
+                         * (frac[2] if dz else 1 - frac[2]))
+                    valid = ((ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+                             & (iz >= 0) & (iz < nz))
+                    idx = ((ix.clamp(0, nx - 1) * ny + iy.clamp(0, ny - 1))
+                           * nz + iz.clamp(0, nz - 1)).reshape(b, -1, 1)
+                    w = (w * valid).reshape(b, -1, 1)
+                tap = flat.gather(1, idx.expand(-1, -1, c)) * w
+                out = tap if out is None else out + tap
+    return out.reshape(b, samples, proj_size, proj_size, c)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ checkpoint directory (`<dir>/<step>/state.pt`, written to a temporary
 name and renamed, so a directory with a state file is complete), the
 newest `max_to_keep` kept. `latest_step` is the `find_last` of the
 reference (model.py:2073-2100). Files are read back with
-`weights_only=True`: tensors and plain containers only.
+`weights_only=True`: tensors and plain containers only. The state_dict
+carries the BatchNorms' running statistics (buffers), so TRAIN_BN's
+updated statistics round-trip.
 """
 
 from __future__ import annotations

@@ -299,10 +299,11 @@ def test_engine_detect_matches_jax_engine(tmp_path):
 def test_engine_refuses_what_it_cannot_run(tmp_path):
     """No fallback hides the device: the engine defaults to the card, and
     device='cuda' without CUDA raises; the TPU-only lowerings and the
-    paths not ported yet (TRAIN_BN, REMAT, TRILINEAR_REPROJECTION among
-    them) are refused, not approximated, and so is a GRID_REAS that no
-    GridFusion mode has; the serving options (FOLD_BN,
-    UINT8_IMAGE_TRANSFER, EXPOSE_FUSED_PYRAMID) are accepted."""
+    path not ported yet (VIEW_SHARDING) are refused, not approximated,
+    and so is a GRID_REAS that no GridFusion mode has; the serving
+    options (FOLD_BN, UINT8_IMAGE_TRANSFER, EXPOSE_FUSED_PYRAMID) and the
+    training options (TRAIN_BN, BN_EVAL_BATCH_STATS, REMAT,
+    TRILINEAR_REPROJECTION) are accepted."""
     cfg = SliceConfig()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -312,14 +313,15 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="mode"):
         MaskRCNN("serving", cfg, str(tmp_path), device="cpu")
     for flag in ("PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
-                 "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT", "TRAIN_BN",
-                 "REMAT", "TRILINEAR_REPROJECTION", "VIEW_SHARDING"):
+                 "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT", "VIEW_SHARDING"):
         bad = SliceConfig()
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
             check_supported(bad)
-    # the serving options are ported
-    for flag in ("FOLD_BN", "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID"):
+    # the serving and training options are ported
+    for flag in ("FOLD_BN", "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID",
+                 "TRAIN_BN", "BN_EVAL_BATCH_STATS", "REMAT",
+                 "TRILINEAR_REPROJECTION"):
         ok = SliceConfig()
         setattr(ok, flag, True)
         check_supported(ok)
