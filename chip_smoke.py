@@ -187,6 +187,40 @@ Phases, one line each (any failure exits non-zero):
                bf16 through compat.MaskRCNN.train, each step's time and
                its gradient all-reduce's share; rank 0 alone writes. One
                JSON line {"phase": "train_options", ...}.
+ 14. mesh    — the device mesh (parallel/mesh.py), 4 ranks spawned on the
+               one card over gloo, each with its own CUDA context; every
+               number labelled "4 processes on one H100 over gloo" with
+               the nvidia-smi line. The one-process references come
+               first, in this process. (a) 256^2 float32, TF32 off,
+               frozen BN, conv3d: one step through
+               make_parallel_train_step (views sharded, the TP rule
+               applied) on (data, view, model) = (1, 2, 2), (2, 2, 1) and
+               (2, 1, 2) against the one-process step on the same global
+               batch and ROI priorities, the backbone ReLU inputs whose
+               sign differs from the one-process step's counted on each
+               rank, at most MESH_FLIP_MAX (32), and on (1, 2, 2) and
+               (2, 1, 2) pinned to the one-process value
+               (`_BackboneRelu`, phase 7's pin for all of them: cuDNN
+               rounds the ranks' convolutions otherwise, and a flip at a
+               residual sum moves the gradients below it by percents);
+               (2, 2, 1) runs unpinned: losses within 1e-4 * max(1,
+               |v|), gradients (split ones gathered) by phase 7's rule, the split leaves' updates by
+               it beyond one float32 spacing of the weight, every whole
+               parameter bit-equal on every rank and every split one on
+               the ranks that hold it (sha1 digests). (b) lstm3d
+               inference at 256^2 float32 on (2, 2, 1), each scene on its
+               own (1, 2, 1): each rank's detections against the
+               one-process run at phase 6's bar, the raw detections'
+               largest difference, 3 per-view unprojection and 3
+               reprojection forwards a rank. (c) the flagship training
+               config in bf16 on (1, 2, 2): 3 steps timed (host clock to
+               a synchronisation), each rank's peak device memory
+               against the one-process steps', the fused unprojection and
+               the reprojection 9 times each way a rank; then one more
+               step with every collective timed between two
+               synchronisations for their share of it. One JSON line
+               {"phase": "mesh", ...}; each rank's launches of (b) and
+               (c) are paths of the kernels' record.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -196,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import glob
+import hashlib
 import io
 import itertools
 import json
@@ -235,6 +270,9 @@ from mulit_view_object_detection_torch.data.synthetic import (  # noqa: E402
     SyntheticMultiViewDataset)
 from mulit_view_object_detection_torch.kernels import (  # noqa: E402
     build, reproject, unproject)
+from mulit_view_object_detection_torch.models.layers import shard_of  # noqa: E402
+from mulit_view_object_detection_torch.models import (  # noqa: E402
+    resnet as resnet_module)
 from mulit_view_object_detection_torch.models.resnet import BatchNorm  # noqa: E402
 from mulit_view_object_detection_torch.ops import projection as plain  # noqa: E402
 from mulit_view_object_detection_torch.ops.roi_align import (  # noqa: E402
@@ -243,6 +281,8 @@ from mulit_view_object_detection_torch.parallel import (  # noqa: E402
     data_parallel_group, host_local_batch_slice, init_distributed)
 from mulit_view_object_detection_torch.parallel import (  # noqa: E402
     distributed as parallel_dist)
+from mulit_view_object_detection_torch.parallel import (  # noqa: E402
+    mesh as parallel_mesh)
 from mulit_view_object_detection_torch.serve import (  # noqa: E402
     MicroBatcher, detect_remote, make_server)
 from mulit_view_object_detection_torch.train.optim import (  # noqa: E402
@@ -544,12 +584,16 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SMI = []        # the nvidia-smi line, once phase_device has read it
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    SMI.append(smi)
     name = torch.cuda.get_device_name(0)
     say("device", name=json.dumps(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -2668,6 +2712,459 @@ def phase_train_options():
     return bn_launches, tri_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the device mesh
+# ---------------------------------------------------------------------------
+MESH_RANKS = 4
+MESH_SHAPES = ((1, 2, 2), (2, 2, 1), (2, 1, 2))
+# (a)'s meshes whose backbone ReLU inputs are pinned to the one-process
+# signs; (2, 2, 1) flipped none on the H100 and runs unpinned
+MESH_PINNED = ((1, 2, 2), (2, 1, 2))
+# the most backbone ReLU inputs of a rank whose sign may differ from the
+# one-process step's: sound runs on the H100 flipped 0-6 a mesh, while a
+# sharding fault upstream of the gather flips a share of all of them
+MESH_FLIP_MAX = 32
+MESH_LABEL = "4 processes on one H100 over gloo"
+MESH_JOIN_S = 600
+
+
+class MeshLstm256(Flagship256):
+    """Phase 6's lstm3d parity config with a batch of 2 scenes."""
+    NAME = "mesh_lstm3d_256"
+    GRID_REAS = "lstm3d"
+    GPU_COUNT = 2
+
+
+def _digest(t):
+    return hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _mesh_reference(cfg, host):
+    """(a)'s one-process step from seeded weights on the global batch,
+    ROI priorities from a CUDA generator seeded 0: metrics, gradients
+    and the parameters before and after, on the CPU."""
+    eng = MaskRCNN("training", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(3))
+    model = eng.model
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    opt = make_optimizer(model.parameters(), cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+    relu = _BackboneRelu()
+    with mock.patch.object(resnet_module, "F", relu):
+        metrics = train_step(model, opt, eng.to_device(host), cfg,
+                             trainable_mask(model, "all"),
+                             torch.Generator(DEV).manual_seed(0))
+    return {"metrics": metrics, "before": before, "relu": relu.inputs,
+            "grads": {n: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).detach().cpu()
+                      for n, p in model.named_parameters()},
+            "after": {n: p.detach().cpu() for n, p in
+                      model.named_parameters()}}
+
+
+class _BackboneRelu:
+    """`models/resnet.py`'s torch.nn.functional with its relu watched:
+    every backbone ReLU (the stem's, and bn2a's, bn2b's and the residual
+    sum's of each block) records its input, or, given `recorded` (one
+    process's, in call order) and `rows` (this rank's images in the
+    global batch's), counts the inputs whose sign differs from the
+    recorded one's and, with `pin`, takes the recorded value there
+    (phase 7's `_pin`)."""
+
+    def __init__(self, recorded=None, rows=None, pin=True):
+        self.recorded, self.rows, self.pin = recorded, rows, pin
+        self.inputs, self.flips = [], []
+
+    def __getattr__(self, name):
+        return getattr(F, name)
+
+    def relu(self, x, inplace=False):
+        if self.recorded is None:
+            self.inputs.append(x.detach().cpu())
+        else:
+            want = self.recorded[len(self.flips)][self.rows].to(x.device)
+            self.flips.append(int(((want > 0) != (x > 0)).sum()))
+            if self.pin:
+                x = _pin(x, want)
+        return F.relu(x)
+
+
+def _image_rows(mesh, b, v):
+    """This rank's backbone images as rows of the global batch's
+    (scene-major, b scenes of v views)."""
+    d, vc = mesh.coord("data"), mesh.coord("view")
+    bl, vl = b // mesh.size("data"), v // mesh.size("view")
+    return torch.tensor([(d * bl + i // vl) * v + vc * vl + i % vl
+                         for i in range(bl * vl)])
+
+
+def _mesh_parity_case(shape, cfg, host, ref):
+    """(a) on one mesh: the step through make_parallel_train_step with
+    the views sharded and the TP rule applied, the backbone's ReLU
+    inputs' sign flips against the one-process step counted and, on the
+    meshes of MESH_PINNED, pinned (`_BackboneRelu`); the losses, the
+    gradients and the updated parameters (split ones gathered) against
+    the one-process step; digests of the whole parameters."""
+    mesh = parallel_mesh.make_mesh(*shape)
+    eng = MaskRCNN("training", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(3))
+    model = eng.model
+    relu = _BackboneRelu(ref["relu"], _image_rows(mesh, cfg.BATCH_SIZE,
+                                                  cfg.NUM_VIEWS),
+                         pin=shape in MESH_PINNED)
+    opt = make_optimizer(model.parameters(), cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+    parallel_mesh.shard_state_tp(model, opt, mesh)
+    step = parallel_mesh.make_parallel_train_step(train_step, mesh, True)
+    with mock.patch.object(resnet_module, "F", relu):
+        metrics = step(model, opt, host, cfg, trainable_mask(model, "all"),
+                       torch.Generator(DEV).manual_seed(0))
+    # the backbone's ReLUs in call order: the stem's, then each block's
+    # after bn2a, after bn2b and on the residual sum
+    names = ["bn_conv1"] + [f"{blk}.{at}" for stage in
+                            model.backbone.stage_names for blk in stage
+                            for at in ("bn2a", "bn2b", "sum")]
+    named = list(model.named_parameters())
+    split = {n for n, p in named if shard_of(p) is not None}
+    grads = parallel_mesh.gather_shards(
+        (n, p.grad if p.grad is not None else torch.zeros_like(p),
+         shard_of(p)) for n, p in named)
+    after = parallel_mesh.gather_shards(
+        (n, p.detach(), shard_of(p)) for n, p in named)
+    grads = {n: g.float().cpu() for n, g in grads.items()}
+    after = {n: t.cpu() for n, t in after.items()}
+    loss_err = max(abs(metrics[k] - v) / max(1.0, abs(v))
+                   for k, v in ref["metrics"].items())
+    floor = 1e-6 * max(float(g.abs().max()) for g in ref["grads"].values())
+    gerrs = _grad_errs(ref["grads"], grads, floor)
+    # the updated slices, held to the update's size beyond one float32
+    # spacing of the weight: a step of lr 1e-3 moves a weight by a few
+    # hundred of its spacings, so gradients equal to 5e-6 may still land
+    # on neighbouring floats
+    upd = {n: ref["after"][n] - ref["before"][n] for n in split}
+    ufloor = 1e-6 * max([float(u.abs().max()) for u in upd.values()] + [0])
+    uerrs = {}
+    for n in split:
+        want = ref["after"][n]
+        spacing = (torch.nextafter(want, want.new_tensor(float("inf")))
+                   - want).abs()
+        beyond = ((after[n] - want).abs() - spacing).clamp_min(0)
+        uerrs[n] = float(beyond.max()) / max(float(upd[n].abs().max()),
+                                             ufloor, 1e-30)
+    beyond = [n for n, e in gerrs.items() if e > GRAD_TOL]
+    ubeyond = [n for n, e in uerrs.items() if e > GRAD_TOL]
+    return {
+        "mesh": shape, "metrics": metrics, "max_loss_err": loss_err,
+        "relu_flips": {names[i]: k for i, k in enumerate(relu.flips) if k},
+        "relu_calls": len(relu.flips), "relu_pinned": relu.pin,
+        "relu_flip_total": sum(relu.flips),
+        "worst_grads": {n: gerrs[n] for n in sorted(
+            gerrs, key=gerrs.get)[-8:]},
+        "max_grad_err": max(gerrs.values()), "grad_tensors": len(gerrs),
+        "grads_beyond_1e_3": len(beyond),
+        "grads_agree": max(gerrs.values()) <= GRAD_FLIP_TOL
+        and len(beyond) <= GRAD_FLIP_SHARE * len(gerrs),
+        "split_leaves": len(split),
+        "max_split_update_err": max(uerrs.values()) if uerrs else None,
+        "split_updates_beyond_1e_3": len(ubeyond),
+        "split_updates_agree": not uerrs or (
+            max(uerrs.values()) <= GRAD_FLIP_TOL
+            and len(ubeyond) <= GRAD_FLIP_SHARE * len(uerrs)),
+        "whole": {n: _digest(p) for n, p in named if n not in split},
+        "own_split": {n: _digest(p) for n, p in named if n in split}}
+
+
+def _mesh_detect_inputs(eng, cfg):
+    """(b)'s two 256^2 scenes, molded, as the engine's device batch."""
+    rng = np.random.RandomState(2)
+    hw = cfg.IMAGE_MAX_DIM
+    images = request_images(rng, 2, hw, cfg.NUM_VIEWS)
+    molded, metas, windows = eng._mold_batch(images)
+    batch = eng._device_batch(molded, metas, poses(rng, 2, cfg.NUM_VIEWS),
+                              intrinsics(2, hw), None)
+    return images, batch, molded.shape[2:5], windows
+
+
+def _mesh_detect(mesh):
+    """(b): lstm3d inference with the views sharded, each data rank its
+    own scene (a (1, 2, 1) mesh a scene). Returns this rank's unmolded
+    detections and launches."""
+    cfg = MeshLstm256()
+    eng = MaskRCNN("inference", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(3))
+    images, batch, molded_shape, windows = _mesh_detect_inputs(eng, cfg)
+    local = parallel_mesh.shard_batch(
+        batch, parallel_mesh.batch_sharding(mesh, True))
+    d = mesh.coord("data")
+    reset_counts()
+    with torch.no_grad():
+        out = eng.model(local, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_variants("mesh_lstm3d", launches)
+    res = eng._unmold_all(out, [images[d][0].shape], molded_shape,
+                          windows[d:d + 1])[0]
+    return {"scene": d, "detections": res,
+            "raw": out["detections"][0].float().cpu()}, launches
+
+
+class _CollectiveClock:
+    """Host time inside torch.distributed's all_reduce, all_gather and
+    broadcast, each call between two device synchronisations."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.calls = 0
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t) * 1e3
+            self.calls += 1
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def running(self):
+        with mock.patch.multiple(
+                dist, all_reduce=self.wrap(dist.all_reduce),
+                all_gather=self.wrap(dist.all_gather),
+                broadcast=self.wrap(dist.broadcast)):
+            yield self
+
+
+def _flagship_steps(cfg, ds, step_fn, model, opt):
+    """(c): 3 steps, each timed on the host clock to a synchronisation,
+    the peak device memory over them (reset before the first) and the
+    kernels' launches; then one step more with the collectives timed.
+    Returns the numbers and the launches."""
+    mask = trainable_mask(model, "all")
+    gen = torch.Generator(DEV).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for k in range(3):
+        host = make_batch(ds, cfg, rnd_state=k)
+        t = time.perf_counter()
+        metrics = step_fn(model, opt, host, cfg, mask, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"flagship mesh losses not finite: {metrics}")
+    launches = read_counts()
+    check_variants("mesh_flagship", launches)
+    peak = torch.cuda.max_memory_allocated()
+    clock = _CollectiveClock()
+    with clock.running():
+        t = time.perf_counter()
+        step_fn(model, opt, make_batch(ds, cfg, rnd_state=3), cfg, mask, gen)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t) * 1e3
+    return {"step_ms": times, "step_ms_median": statistics.median(times),
+            "peak_gb": peak / 1e9, "timed_step_ms": timed_ms,
+            "collective_ms": clock.ms, "collective_calls": clock.calls,
+            "collective_share": clock.ms / timed_ms,
+            "losses": metrics}, launches
+
+
+def _one_process_flagship(cfg, ds):
+    """(c)'s one-process baseline on the same data."""
+    eng = MaskRCNN("training", cfg, "build")
+    opt = make_optimizer(eng.model.parameters(), cfg.LEARNING_RATE,
+                         cfg.LEARNING_MOMENTUM)
+
+    def step_fn(model, opt_, host, cfg_, mask, gen):
+        return train_step(model, opt_, eng.to_device(host), cfg_, mask, gen)
+
+    numbers, _ = _flagship_steps(cfg, ds, step_fn, eng.model, opt)
+    return numbers
+
+
+def _mesh_rank(rank, port, outdir):
+    """A rank of phase 14: (a) the 256^2 float32 parity steps on every
+    mesh, (b) the lstm3d inference on (2, 2, 1), (c) the flagship steps
+    on (1, 2, 2)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                            backend="gloo"):
+        raise RuntimeError("no process group")
+    try:
+        out = {"device": str(torch.cuda.current_device())}
+        ref = torch.load(os.path.join(outdir, "ref_a.pt"))
+        host = torch.load(os.path.join(outdir, "host_a.pt"),
+                          weights_only=False)
+        cfg = DP256()
+        out["parity"] = [_mesh_parity_case(shape, cfg, host, ref)
+                         for shape in MESH_SHAPES]
+        del ref
+        out["detect"], out["detect_launches"] = _mesh_detect(
+            parallel_mesh.make_mesh(2, 2, 1))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = FlagshipTrainConfig()
+        ds = SyntheticMultiViewDataset(num_scenes=4, num_views=2,
+                                       image_size=640,
+                                       num_classes=cfg.NUM_CLASSES, seed=0)
+        mesh = parallel_mesh.make_mesh(1, 2, 2)
+        eng = MaskRCNN("training", cfg, "build")
+        opt = make_optimizer(eng.model.parameters(), cfg.LEARNING_RATE,
+                             cfg.LEARNING_MOMENTUM)
+        parallel_mesh.shard_state_tp(eng.model, opt, mesh)
+        step_fn = parallel_mesh.make_parallel_train_step(train_step, mesh,
+                                                         True)
+        out["flagship"], out["flagship_launches"] = _flagship_steps(
+            cfg, ds, step_fn, eng.model, opt)
+        torch.save(out, os.path.join(outdir, f"mesh_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh():
+    """Phase 14. Returns each rank's launches of (b)'s inference and (c)'s
+    flagship steps, by path."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DP256()
+    ds = SyntheticMultiViewDataset(num_scenes=2, num_views=2, image_size=256,
+                                   num_classes=cfg.NUM_CLASSES, seed=2)
+    host = make_batch(ds, cfg, rnd_state=DP_DATA_SEED)
+    out = {"label": MESH_LABEL, "card": SMI[0]}
+    with tempfile.TemporaryDirectory(dir="build") as outdir:
+        ref = _mesh_reference(cfg, host)
+        again = _mesh_reference(cfg, host)
+        floor = 1e-6 * max(float(g.abs().max()) for g in ref["grads"].values())
+        out["one_process_repeat_max_grad_err"] = max(_grad_errs(
+            ref["grads"], again["grads"], floor).values())
+        say("mesh_reference", repeat_max_grad_err=out[
+            "one_process_repeat_max_grad_err"])
+        torch.save(ref, os.path.join(outdir, "ref_a.pt"))
+        del ref, again
+        torch.save(host, os.path.join(outdir, "host_a.pt"))
+        lstm = MeshLstm256()
+        eng = MaskRCNN("inference", lstm, "build")
+        eng.init_weights(torch.Generator().manual_seed(3))
+        images, batch, molded_shape, windows = _mesh_detect_inputs(eng, lstm)
+        with torch.no_grad():
+            ref_out = eng.model(batch)
+        ref_dets = eng._unmold_all(ref_out, [im[0].shape for im in images],
+                                   molded_shape, windows)
+        ref_raw = ref_out["detections"].float().cpu()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        flag = FlagshipTrainConfig()
+        fds = SyntheticMultiViewDataset(num_scenes=4, num_views=2,
+                                        image_size=640,
+                                        num_classes=flag.NUM_CLASSES, seed=0)
+        out["one_process"] = _one_process_flagship(flag, fds)
+        del eng, ref_out, batch
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        t = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_rank, args=(r, port, outdir))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=MESH_JOIN_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"mesh ranks exited "
+                               f"{[p.exitcode for p in procs]}")
+        out["ranks_s"] = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(outdir, f"mesh_{r}.pt"),
+                            weights_only=False) for r in range(MESH_RANKS)]
+    # (a) each mesh against one process, the ranks against each other
+    failures = []
+    out["parity"] = []
+    for i, shape in enumerate(MESH_SHAPES):
+        cases = [r["parity"][i] for r in ranks]
+        case = {k: v for k, v in cases[0].items()
+                if k not in ("whole", "own_split")}
+        case["whole_bit_equal"] = all(c["whole"] == cases[0]["whole"]
+                                      for c in cases)
+        # the ranks of one data x view group hold the same slice
+        model = shape[2]
+        case["split_bit_equal"] = all(
+            cases[r]["own_split"] == cases[r % model]["own_split"]
+            for r in range(MESH_RANKS))
+        case["ranks_metrics_equal"] = all(c["metrics"] == cases[0]["metrics"]
+                                          for c in cases)
+        case["rank_metrics"] = [c["metrics"]["loss"] for c in cases]
+        case["rank_relu_flips"] = [c["relu_flip_total"] for c in cases]
+        out["parity"].append(case)
+        say("mesh_parity", **{k: json.dumps(v) if isinstance(v, dict)
+                              else v for k, v in case.items()})
+        if not (case["max_loss_err"] <= 1e-4 and case["grads_agree"]
+                and case["split_updates_agree"] and case["whole_bit_equal"]
+                and case["split_bit_equal"]
+                and case["ranks_metrics_equal"]
+                and max(case["rank_relu_flips"]) <= MESH_FLIP_MAX
+                and bool(case["split_leaves"]) == (model > 1)):
+            failures.append(f"mesh {shape} != one process")
+    # (b) each rank's scene against the one-process detect
+    out["detect"] = []
+    for r, rank in enumerate(ranks):
+        d = rank["detect"]["scene"]
+        n_ref, n_got, matched, worst_score, worst_mask = match_detections(
+            ref_dets[d], rank["detect"]["detections"])
+        raw = float((rank["detect"]["raw"] - ref_raw[d]).abs().max())
+        case = {"rank": r, "scene": d, "detections": n_ref,
+                "mesh_detections": n_got, "matched": matched,
+                "max_score_diff": worst_score,
+                "min_mask_iou": float(worst_mask),
+                "max_raw_detection_diff": raw,
+                "launches": rank["detect_launches"]}
+        out["detect"].append(case)
+        say("mesh_detect", **{k: json.dumps(v) if isinstance(v, dict)
+                              else v for k, v in case.items()})
+        try:
+            check_parity(f"mesh lstm3d rank {r}", n_ref, n_got, matched,
+                         worst_score, worst_mask)
+        except RuntimeError as e:
+            failures.append(str(e))
+        if rank["detect_launches"] != expected(unproject_view=3,
+                                               reproject=3):
+            failures.append(f"mesh detect launches "
+                            f"{rank['detect_launches']}")
+    # (c) the flagship on (1, 2, 2)
+    n = 3 * 3
+    want = expected(unproject=n, unproject_bwd=n, reproject=n,
+                    reproject_bwd=n)
+    out["flagship"] = [dict(r["flagship"], rank=i)
+                       for i, r in enumerate(ranks)]
+    for i, r in enumerate(ranks):
+        if r["flagship_launches"] != want:
+            failures.append(f"rank {i} flagship launches "
+                            f"{r['flagship_launches']} != {want}")
+    if any(r["flagship"]["losses"] != ranks[0]["flagship"]["losses"]
+           for r in ranks):
+        failures.append("flagship mesh ranks' losses differ")
+    say("mesh_flagship", label=json.dumps(MESH_LABEL), card=json.dumps(SMI[0]),
+        one_process=json.dumps(out["one_process"]),
+        ranks=json.dumps(out["flagship"]))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "mesh", **out}), flush=True)
+    if failures:
+        raise RuntimeError(f"mesh phase: {failures}")
+    paths = {}
+    for i, r in enumerate(ranks):
+        paths[f"mesh_lstm3d_rank{i}"] = r["detect_launches"]
+        paths[f"mesh_flagship_rank{i}"] = r["flagship_launches"]
+    return paths
+
 
 
 def main():
@@ -2692,6 +3189,7 @@ def main():
     paths["serve"] = phase_serve(record)
     paths["bn_remat_train"], paths["trilinear_inference"] = \
         phase_train_options()
+    paths.update(phase_mesh())
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

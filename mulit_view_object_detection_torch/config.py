@@ -357,9 +357,6 @@ class Config:
 # layers, so the port runs the plain layers and refuses the flags.
 _TPU_LOWERINGS = ("PHASE_DECONV", "PHASE_DECONV_MASK", "ZFOLD_FUSION",
                   "STEM_S2D", "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT")
-# The JAX package's view sharding: GSPMD placements with no counterpart
-# in the port yet (ROADMAP Queue 1, the next parallel slice).
-_NOT_YET = ("VIEW_SHARDING",)
 # GridFusion modes of the projected path (TRANSFORMER switches the
 # transformer fusion, not GRID_REAS)
 _PORTED_FUSIONS = ("add", "mean", "ident", "conv3d", "lstm3d")
@@ -382,19 +379,15 @@ def check_supported(cfg):
     unaffected), UINT8_IMAGE_TRANSFER (uint8 images de-molded on the
     device) and EXPOSE_FUSED_PYRAMID (the fused P2..P5 among the
     outputs). USE_PALLAS is ignored (the CUDA kernels run whenever the
-    tensors are on the GPU). Refuses the TPU-only lowerings and
-    VIEW_SHARDING, not ported yet (ROADMAP Queue 1)."""
+    tensors are on the GPU). VIEW_SHARDING is accepted and read by
+    nothing, as in the JAX package, where no code reads it either: view
+    sharding is the mesh's (parallel/mesh.py, `batch_sharding(mesh,
+    view_sharding=True)`). Refuses the TPU-only lowerings."""
     for name in _TPU_LOWERINGS:
         if getattr(cfg, name, False):
             raise ValueError(
                 f"{name} is a TPU-only lowering of the plain layers; the "
                 f"PyTorch port runs the plain layers — set {name} = False")
-    for name in _NOT_YET:
-        if getattr(cfg, name, False):
-            raise ValueError(
-                f"{name} is not ported to PyTorch yet (ROADMAP Queue 1: "
-                f"the parallel slice after data parallelism); data "
-                f"parallelism over processes is parallel/distributed.py")
     if not cfg.TRANSFORMER and cfg.GRID_REAS not in _PORTED_FUSIONS:
         raise ValueError(
             f"GRID_REAS={cfg.GRID_REAS!r} is not a GridFusion mode; the "

@@ -21,7 +21,16 @@ covers the variants the port runs, switched by config:
 
 Views fold into the batch axis for backbone/FPN; the RPN on a zeroed
 level is evaluated on a 1x1 zero tile and tiled (exact: a conv stack on
-an all-zero input is spatially constant). The dtype policy is flax's:
+an all-zero input is spatially constant). On a mesh with sharded views
+(`parallel/mesh.py`) the images hold this rank's block of the views:
+the backbone and the FPN run on them, and the levels the fusion reads
+are gathered over the view group (`models/layers.py::gather`) before
+it, so that everything after runs on every view as one process runs
+it. The levels are gathered, not the voxel grids: a view's P4-P6 at the
+flagship are about 90x fewer bytes than its three unprojected grids,
+and the unprojection done again on every view rank is cheap.
+
+The dtype policy is flax's:
 every parameter is float32, and under COMPUTE_DTYPE "bfloat16" the
 convolutions cast their weights and inputs to bf16 at use
 (`models/layers.py`), so activations are bf16; BatchNorm normalises in
@@ -49,6 +58,7 @@ from torch import nn
 from ..config import check_supported
 from ..kernels.reproject import project_grid_nearest
 from ..kernels.unproject import unproject_features, unproject_features_fused
+from ..ops.anchors import get_anchors
 from ..ops.boxes import norm_boxes
 from ..ops.detection import refine_detections
 from ..ops.image_meta import parse_image_meta
@@ -60,7 +70,7 @@ from ..ops.targets import detection_targets_batch
 from .fpn import FPN
 from .fusion import DepthCollapse, GridFusion
 from .heads import ClassifierHead, MaskHead
-from .layers import DenseGeneral, set_compute_dtype
+from .layers import DenseGeneral, gather, set_compute_dtype
 from .resnet import BatchNorm, BatchStats, ResNet, checkpointed
 from .rpn import RPNHead
 from .transformer import LayerNorm, ViewFusionTransformer
@@ -70,6 +80,23 @@ _INIT_LAYERS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
 # fusion modes that read one grid per view (the per-view unprojection
 # kernel); conv3d and ident read the fused kernel's view-concatenated grid
 PER_VIEW_FUSIONS = ("add", "mean", "lstm3d")
+# the modules before the views' gather: on a mesh with sharded views their
+# gradients and batch statistics are summed over the data x view group
+UPSTREAM = ("backbone", "fpn")
+
+
+def view_group_of(mesh, views, num_views):
+    """The group over which a batch holding `views` of the model's
+    `num_views` views is gathered: the view group of `mesh`
+    (`parallel/mesh.py::Mesh`) when the views are sharded over it, None
+    when the batch holds every view. Any other count raises."""
+    if views == num_views:
+        return None
+    n = 1 if mesh is None else mesh.size("view")
+    if n > 1 and views * n == num_views:
+        return mesh.view_group
+    raise ValueError(f"images carry {views} views: not the config's "
+                     f"{num_views}, nor a 1/{n} shard of them")
 
 
 class MaskRCNN(nn.Module):
@@ -172,7 +199,7 @@ class MaskRCNN(nn.Module):
                 voxel_grid_points(self.config)).to(device)
         return self._grid_pts[device]
 
-    def forward(self, batch, training=False, stats=None):
+    def forward(self, batch, training=False, stats=None, mesh=None):
         """batch: images [B, V, H, W, 3] molded float, or resized uint8
         pixels (UINT8_IMAGE_TRANSFER), de-molded here; image_meta
         [B, META]; anchors [A, 4] normalized; Rcam [B, V, 3, 4] and Kmat
@@ -190,7 +217,13 @@ class MaskRCNN(nn.Module):
         (its group makes them the global batch's); the caller commits
         them or not. With TRAIN_BN and none given, a fresh one, dropped.
         Ignored where the BatchNorms are frozen: without TRAIN_BN, and in
-        inference without BN_EVAL_BATCH_STATS."""
+        inference without BN_EVAL_BATCH_STATS.
+
+        `mesh` (`parallel/mesh.py`): where the images carry a 1/n block of
+        the views on a mesh of n view ranks, the views are sharded: the
+        levels are gathered over the view group after the FPN and the
+        backbone's statistics summed over the data x view group. Rcam,
+        Kmat and depths stay whole."""
         cfg = self.config
         train_bn = bool(cfg.TRAIN_BN) and (
             training or bool(getattr(cfg, "BN_EVAL_BATCH_STATS", False)))
@@ -199,14 +232,16 @@ class MaskRCNN(nn.Module):
         elif stats is None:
             stats = BatchStats()
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
-            return self._forward(batch, training, stats)
+            return self._forward(batch, training, stats, mesh)
 
-    def _forward(self, batch, training, stats):
+    def _forward(self, batch, training, stats, mesh):
         cfg = self.config
         images = batch["images"]
         b, v, h, w, _ = images.shape
-        if v != cfg.NUM_VIEWS:
-            raise ValueError(f"images carry {v} views, config {cfg.NUM_VIEWS}")
+        view_group = view_group_of(mesh, v, cfg.NUM_VIEWS)
+        if view_group is not None and (cfg.VANILLA or not self.multiview):
+            raise ValueError("view sharding needs a multi-view config "
+                             "that fuses the views (not VANILLA)")
         x = images.reshape(b * v, h, w, -1)
         if x.dtype == torch.uint8:
             # UINT8_IMAGE_TRANSFER: raw resized pixels came to the device
@@ -215,11 +250,22 @@ class MaskRCNN(nn.Module):
             x = x.float() - self._mean_pixel(x.device)
         x = x.permute(0, 3, 1, 2)
         remat = bool(cfg.REMAT) and training
-        _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype), stats,
-                                          remat)
+        upstream = stats
+        if stats is not None and view_group is not None:
+            upstream = stats.over(mesh.data_view_group)
+        _, c2, c3, c4, c5 = self.backbone(x.to(self.compute_dtype),
+                                          upstream, remat)
         levels = self.fpn(c2, c3, c4, c5)
-        fmaps, zero_levels = self._fuse_views(batch, levels, b, v, (h, w),
-                                              training, stats, remat)
+        if self.multiview or self.transformer:
+            levels = [p.reshape(b, v, *p.shape[1:]) for p in levels]
+            if view_group is not None:
+                levels = [p if li in self.zero_levels
+                          else gather(p, 1, view_group)
+                          for li, p in enumerate(levels)]
+            fmaps, zero_levels = self._fuse_views(batch, levels, (h, w),
+                                                  training, stats, remat)
+        else:
+            fmaps, zero_levels = levels, set()
 
         # RPN, zero levels constant-folded
         k = len(cfg.RPN_ANCHOR_RATIOS)
@@ -308,16 +354,14 @@ class MaskRCNN(nn.Module):
         })
         return outputs
 
-    def _fuse_views(self, batch, levels, b, v, image_shape, training, stats,
+    def _fuse_views(self, batch, levels, image_shape, training, stats,
                     remat):
-        """levels: 5 maps [B*V, C, h, w]. Returns ([P2..P6] as
+        """levels: 5 maps [B, V, C, h, w] (a zeroed level may hold only
+        this rank's views: only its shape is read). Returns ([P2..P6] as
         [B, C, h, w], zero level indices). Under `remat` each level's
         GridFusion and DepthCollapse is checkpointed; the unprojection
         and reprojection between them run once."""
         cfg = self.config
-        if v == 1 and not self.transformer:
-            return levels, set()
-        levels = [p.reshape(b, v, *p.shape[1:]) for p in levels]
         out = []
         if not self.projected:                    # TRANSFORMER, VANILLA
             fused = (self._fuse_p5(batch, levels[3], image_shape, training)
@@ -384,3 +428,39 @@ class MaskRCNN(nn.Module):
         fused = self.view_transformer(tokens.to(self.compute_dtype),
                                       positions, generator)
         return fused.permute(0, 3, 1, 2)
+
+
+def make_dummy_batch(config, training=False, batch_size=None, num_views=None,
+                     image_size=None):
+    """Zero-filled inputs with the right static shapes, as numpy arrays
+    (the JAX package's make_dummy_batch, detector.py:469-505): for shape
+    checks and smoke runs. Training adds zero ground truth; the RPN
+    targets and the ROI priorities are the caller's."""
+    cfg = config
+    b = batch_size or cfg.BATCH_SIZE
+    v = num_views or cfg.NUM_VIEWS
+    hw = image_size or int(cfg.IMAGE_SHAPE[0])
+    anchors = get_anchors(cfg, [hw, hw, 3])
+    img_dtype = (np.uint8 if getattr(cfg, "UINT8_IMAGE_TRANSFER", False)
+                 else np.float32)
+    batch = {
+        "images": np.zeros((b, v, hw, hw, 3), img_dtype),
+        "image_meta": np.zeros((b, cfg.IMAGE_META_SIZE), np.float32),
+        "anchors": anchors.astype(np.float32),
+        "Rcam": np.tile(np.eye(3, 4, dtype=np.float32), (b, v, 1, 1)),
+        "Kmat": np.tile(np.array([[hw, 0, hw / 2], [0, hw, hw / 2],
+                                  [0, 0, 1]], np.float32), (b, 1, 1)),
+    }
+    batch["image_meta"][:, 4:7] = [hw, hw, 3]
+    batch["image_meta"][:, 7:11] = [0, 0, hw, hw]
+    if cfg.TRANSFORMER:
+        s5 = hw // cfg.BACKBONE_STRIDES[3]
+        batch["depths"] = np.full((b, v, s5, s5), 2.0, np.float32)
+    if training:
+        g = cfg.MAX_GT_INSTANCES
+        mh, mw = (cfg.MINI_MASK_SHAPE if cfg.USE_MINI_MASK
+                  else (hw, hw))
+        batch["gt_class_ids"] = np.zeros((b, g), np.int32)
+        batch["gt_boxes"] = np.zeros((b, g, 4), np.float32)
+        batch["gt_masks"] = np.zeros((b, g, mh, mw), np.float32)
+    return batch

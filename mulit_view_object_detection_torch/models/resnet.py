@@ -63,6 +63,16 @@ class BatchStats:
         self.group = group
         self.records = []
 
+    def over(self, group):
+        """These statistics reduced over `group` instead, recording into
+        the same list. On a mesh with sharded views
+        (`parallel/mesh.py`), the backbone's BatchNorms see only the
+        rank's views and sum over the data x view group; the fusion's
+        and the heads', after the views' gather, over the data group."""
+        out = BatchStats(group)
+        out.records = self.records
+        return out
+
     @torch.no_grad()
     def commit(self):
         """running = MOMENTUM * running + (1 - MOMENTUM) * batch, with the

@@ -15,10 +15,8 @@ that needs the global batch reduces over the process group explicitly:
   * the gradients (`all_reduce_gradients`) and the reported losses
     (`train/step.py`).
 
-`globalize_batch` has no counterpart: nothing here stitches a global
-array. The view axis and the tensor-parallel helpers of mesh.py
-(`make_mesh`'s view and model axes, `param_spec`, `shard_params`,
-`shard_state_tp`) are not ported (ROADMAP Queue 1).
+The rest of mesh.py, the view and model axes, is `parallel/mesh.py`,
+which re-exports `init_distributed` and `host_local_batch_slice`.
 """
 
 from __future__ import annotations
@@ -195,24 +193,42 @@ def all_reduce_gradients(params, group):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+    _in_buckets(grads, lambda flat: dist.all_reduce(flat, group=group))
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors, group):
+    """Make `tensors` (the same list on every rank of `group`) the
+    group's first rank's, in buckets as `all_reduce_gradients`."""
+    src = dist.get_global_rank(group, 0)
+    _in_buckets(tensors, lambda flat: dist.broadcast(flat, src=src,
+                                                     group=group))
+
+
+def _in_buckets(tensors, collective):
+    """Run `collective` on the tensors flattened into buffers of about
+    BUCKET_BYTES each (one dtype a buffer), copying the results back."""
     bucket, size = [], 0
-    for g in grads:
-        bucket.append(g)
-        size += g.numel() * g.element_size()
+    for t in tensors:
+        if bucket and t.dtype != bucket[0].dtype:
+            _run_bucket(bucket, collective)
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel() * t.element_size()
         if size >= BUCKET_BYTES:
-            _reduce_bucket(bucket, group)
+            _run_bucket(bucket, collective)
             bucket, size = [], 0
     if bucket:
-        _reduce_bucket(bucket, group)
+        _run_bucket(bucket, collective)
 
 
-def _reduce_bucket(bucket, group):
-    flat = torch.cat([g.reshape(-1) for g in bucket])
-    dist.all_reduce(flat, group=group)
+def _run_bucket(bucket, collective):
+    flat = torch.cat([t.reshape(-1) for t in bucket])
+    collective(flat)
     offset = 0
-    for g in bucket:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    for t in bucket:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 @torch.no_grad()

@@ -24,6 +24,22 @@ priorities of a rank's scenes are the rows a single process would draw
 for them from the same generator, so the generator must be the same on
 every rank. The transformer's dropout masks, drawn after them, are not
 the single process's (not checked under a group).
+
+A mesh (`parallel/mesh.py::Mesh`, in place of the group) adds view
+sharding and tensor parallelism: the losses' denominators, the ROI
+priorities and the reported losses use its data group; the gradients
+of the modules before the views' gather (`models/detector.py::
+UPSTREAM`) are summed over the data x view group when the views are
+sharded, every other gradient over the data group, none over the model
+group. The view and model ranks of one data slot draw the same rows and
+the same dropout masks. The L2 term is added once to every gradient
+that is then summed: for the upstream parameters on one rank of the
+data x view group, for the others on data rank 0 of every view rank,
+each model rank adding its own slice's share of a split leaf; the
+reported L2 is the whole tensors' on every rank. The ranks that compute
+the same thing apart (the view ranks after the gather, the model ranks
+for a whole layer) end each step with the first one's gradients,
+statistics and metrics (`_sync_replicas`).
 """
 
 from __future__ import annotations
@@ -33,10 +49,13 @@ import torch
 import torch.distributed as dist
 
 from ..models import losses as L
+from ..models.detector import UPSTREAM, view_group_of
+from ..models.layers import shard_of
 from ..models.resnet import BatchStats
 from ..ops.image_meta import parse_image_meta
-from ..parallel.distributed import all_reduce_gradients
-from .optim import clip_per_tensor_norm, l2_regularization, mask_gradients
+from ..parallel.distributed import all_reduce_gradients, broadcast_tensors
+from ..parallel.mesh import as_mesh
+from .optim import clip_per_tensor_norm, l2_terms, mask_gradients
 from .trainable import param_paths
 
 
@@ -64,12 +83,6 @@ def compute_losses(outputs, batch, config, group=None):
     }
 
 
-def _rank_and_size(group):
-    if group is None:
-        return 0, 1
-    return dist.get_rank(group), dist.get_world_size(group)
-
-
 def draw_priorities(batch, config, generator, group=None):
     """Add the ROI sampling priorities (two [B, POST_NMS_ROIS_TRAINING]
     uniform draws, positives then negatives) to `batch`, drawn from
@@ -77,9 +90,10 @@ def draw_priorities(batch, config, generator, group=None):
     the generator itself as "dropout_generator" (the transformer's
     dropout draws from it during the forward). Under `group` the draw is
     the global batch's (B times the group's size rows) and this rank
-    takes its own rows."""
+    takes its own rows; under a mesh, the rows of its data coordinate."""
     b = batch["images"].shape[0]
-    rank, size = _rank_and_size(group)
+    mesh = as_mesh(group)
+    rank, size = mesh.coord("data"), mesh.size("data")
     shape = (2, b * size, config.POST_NMS_ROIS_TRAINING)
     pri = torch.rand(shape, generator=generator, device=generator.device)
     pri = pri[:, rank * b:(rank + 1) * b].to(batch["images"].device)
@@ -89,26 +103,93 @@ def draw_priorities(batch, config, generator, group=None):
 
 def loss_and_grads(model, batch, config, mask, group=None):
     """Forward (training graph) and backward; TRAIN_BN's running
-    statistics written once. `batch` carries the priorities. Returns
-    (total loss, the five losses) as tensors (this rank's shares under
-    `group`); the gradients, summed over `group` and masked to `mask`,
-    are in each parameter's .grad."""
+    statistics written once. `batch` carries the priorities; `group` is
+    None, a data-parallel process group or a Mesh. Returns (total loss
+    with L2, the five losses) as tensors (this rank's shares of the
+    global batch's under a group or mesh, which its data group sums);
+    the gradients, summed as the module's docstring says and masked to
+    `mask`, are in each parameter's .grad."""
+    mesh = as_mesh(group)
+    data = mesh.data_group
     named = list(model.named_parameters())
     for _, p in named:
         p.grad = None
-    stats = BatchStats(group)
-    outputs = model(batch, training=True, stats=stats)
-    parts = compute_losses(outputs, batch, config, group)
+    views_sharded = view_group_of(mesh, batch["images"].shape[1],
+                                  config.NUM_VIEWS) is not None
+    stats = BatchStats(data)
+    outputs = model(batch, training=True, stats=stats, mesh=mesh)
+    parts = compute_losses(outputs, batch, config, data)
     total = L.total_loss(parts, config.LOSS_WEIGHTS)
-    if _rank_and_size(group)[0] == 0:
-        total = total + l2_regularization(named, param_paths(model), mask,
-                                          config.WEIGHT_DECAY)
-    total.backward()
-    if group is not None:
-        all_reduce_gradients([p for _, p in named], group)
+    paths = param_paths(model)
+    upstream = {n for n, _ in named if n.split(".")[0] in UPSTREAM}
+    first_view = not views_sharded or mesh.coord("view") == 0
+    terms = dict(l2_terms(named, paths, mask))
+    # this rank's L2 terms: each counted once in the sum its gradient joins
+    own = [t for n, t in terms.items() if mesh.coord("data") == 0
+           and (first_view or n not in upstream)]
+    loss = total
+    if own:
+        loss = total + config.WEIGHT_DECAY * torch.stack(own).sum()
+    loss.backward()
+    summed_over_views = upstream if views_sharded else set()
+    _reduce([p for n, p in named if n in summed_over_views],
+            mesh.data_view_group)
+    _reduce([p for n, p in named if n not in summed_over_views], data)
+    _sync_replicas(named, summed_over_views, mesh)
     mask_gradients(named, mask)
+    committed = [bn for bn, _, _ in stats.records]
     stats.commit()
-    return total, parts
+    if committed and mesh.view_model_group is not None:
+        broadcast_tensors([t for bn in committed
+                           for t in (bn.running_mean, bn.running_var)],
+                          mesh.view_model_group)
+    # the reported L2 is the whole tensors', counted once in the data
+    # group's sum
+    if terms and mesh.coord("data") == 0:
+        total = total + config.WEIGHT_DECAY * _whole_terms(
+            terms, dict(named)).sum()
+    return total.detach(), parts
+
+
+def _reduce(params, group):
+    if group is not None:
+        all_reduce_gradients(params, group)
+
+
+def _sync_replicas(named, summed_over_views, mesh):
+    """Give every rank that holds a parameter the same gradient: the
+    group's first rank's, over the ranks that computed it apart — the
+    view ranks, where the gradient was not summed over them, and the
+    model ranks for a whole parameter. They ran the same computation,
+    but on the card kernels with atomics and the convolution library's
+    choices round differently process to process, and replicas that are
+    not synchronised drift apart."""
+    by_group = {}
+    for n, p in named:
+        if p.grad is None:
+            continue
+        axes = tuple(a for a, apart in (
+            ("view", n not in summed_over_views),
+            ("model", shard_of(p) is None)) if apart)
+        group = mesh.group(axes) if axes else None
+        if group is not None:
+            by_group.setdefault(axes, (group, []))[1].append(p.grad)
+    for group, grads in by_group.values():
+        broadcast_tensors(grads, group)
+
+
+@torch.no_grad()
+def _whole_terms(terms, params):
+    """The L2 `terms` ({name: term}) of the whole tensors: a split leaf's
+    slices' terms summed over its group, in one all-reduce."""
+    vals = torch.stack(list(terms.values()))
+    shards = [shard_of(params[n]) for n in terms]
+    split = [i for i, s in enumerate(shards) if s is not None]
+    if split:
+        part = vals[split]
+        dist.all_reduce(part, group=shards[split[0]].group)
+        vals[split] = part
+    return vals
 
 
 def train_step(model, optimizer, batch, config, mask, generator,
@@ -117,7 +198,9 @@ def train_step(model, optimizer, batch, config, mask, generator,
     TRAIN_BN's running statistics, per-tensor clipnorm, the optimizer's
     update. Returns the metrics as floats (the five losses and "loss",
     the total with L2; the global batch's under `group`, the same on
-    every rank)."""
+    every rank). `group`: None, a data-parallel process group or a
+    Mesh (parallel/mesh.py::make_parallel_train_step places a global
+    batch on one)."""
     batch = draw_priorities(batch, config, generator, group)
     total, parts = loss_and_grads(model, batch, config, mask, group)
     clip_per_tensor_norm(model.parameters(), config.GRADIENT_CLIP_NORM)
@@ -133,18 +216,24 @@ def val_step(model, batch, config, generator, group=None):
     ("loss" without L2, as the JAX val_step; the global batch's under
     `group`)."""
     batch = draw_priorities(batch, config, generator, group)
-    outputs = model(batch, training=True, stats=BatchStats(group))
-    parts = compute_losses(outputs, batch, config, group)
+    mesh = as_mesh(group)
+    outputs = model(batch, training=True,
+                    stats=BatchStats(mesh.data_group), mesh=mesh)
+    parts = compute_losses(outputs, batch, config, mesh.data_group)
     return _floats(dict(parts, loss=L.total_loss(parts, config.LOSS_WEIGHTS)),
                    group)
 
 
 def _floats(metrics, group=None):
-    """The metrics as floats; under `group` summed over its ranks (each
-    holds its share of the global losses)."""
+    """The metrics as floats; under `group` summed over its (data) ranks
+    (each holds its share of the global losses)."""
     vals = torch.stack([t.detach().float() for t in metrics.values()])
-    if group is not None:
-        dist.all_reduce(vals, group=group)
+    mesh = as_mesh(group)
+    if mesh.data_group is not None:
+        dist.all_reduce(vals, group=mesh.data_group)
+    if mesh.view_model_group is not None:
+        # the view and model ranks of a data slot computed them apart
+        broadcast_tensors([vals], mesh.view_model_group)
     return dict(zip(metrics, vals.cpu().tolist()))
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.layers import ColumnParallel
 from .convert import TRANSPOSED_CONVS, bn_module_names
 
 BN_EPS = 1e-3  # models.resnet.BatchNorm's epsilon
@@ -120,8 +121,13 @@ def fold_bn_model(model):
     """Fold `model`'s BatchNorms in place: its weights become the folded
     ones, a BN folded into its conv runs as the identity and an
     affine-only one as x * weight + bias in the model's compute dtype
-    (models/resnet.py::BatchNorm). For inference only. Returns the
-    report."""
+    (models/resnet.py::BatchNorm). For inference only; a model with
+    tensor-parallel layers raises (the JAX package folds only the
+    train state's frozen BatchNorms, for serving). Returns the report."""
+    if any(isinstance(m, ColumnParallel) for m in model.modules()):
+        raise ValueError("FOLD_BN folds a whole model: this one has "
+                         "tensor-parallel layers (parallel/mesh.py); "
+                         "fold a one-process copy of its checkpoint")
     sd, forms, report = _fold(model.state_dict())
     model.load_state_dict(sd, strict=True)
     dtype = getattr(model, "compute_dtype", torch.float32)

@@ -87,6 +87,19 @@ def _kernel_to_flax(path, weight):
     return weight.transpose(spatial + (1, 0))
 
 
+def flax_kernel_axes(path, ndim):
+    """For the leaf at flax `path` with `ndim` dimensions: the torch
+    dimension of each of its flax dimensions (the identity for all but
+    kernels). Read off `_kernel_to_flax` itself, on a shape whose sizes
+    tell the dimensions apart."""
+    if path[-1] != "kernel":
+        return tuple(range(ndim))
+    sizes = tuple(range(2, 2 + ndim))
+    probe = np.broadcast_to(np.zeros((), np.int8), sizes)
+    return tuple(sizes.index(s)
+                 for s in _kernel_to_flax(path[:-1], probe).shape)
+
+
 def flax_to_torch(variables):
     """{"params": tree, "batch_stats": tree} of numpy arrays ->
     {name: float32 tensor} for MaskRCNN.load_state_dict(strict=True)."""

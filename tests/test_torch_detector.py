@@ -298,12 +298,13 @@ def test_engine_detect_matches_jax_engine(tmp_path):
 
 def test_engine_refuses_what_it_cannot_run(tmp_path):
     """No fallback hides the device: the engine defaults to the card, and
-    device='cuda' without CUDA raises; the TPU-only lowerings and the
-    path not ported yet (VIEW_SHARDING) are refused, not approximated,
-    and so is a GRID_REAS that no GridFusion mode has; the serving
-    options (FOLD_BN, UINT8_IMAGE_TRANSFER, EXPOSE_FUSED_PYRAMID) and the
-    training options (TRAIN_BN, BN_EVAL_BATCH_STATS, REMAT,
-    TRILINEAR_REPROJECTION) are accepted."""
+    device='cuda' without CUDA raises; the TPU-only lowerings are
+    refused, not approximated, and so is a GRID_REAS that no GridFusion
+    mode has; the serving options (FOLD_BN, UINT8_IMAGE_TRANSFER,
+    EXPOSE_FUSED_PYRAMID), the training options (TRAIN_BN,
+    BN_EVAL_BATCH_STATS, REMAT, TRILINEAR_REPROJECTION) and VIEW_SHARDING
+    (read by nothing, as in the JAX package: view sharding is the
+    mesh's, parallel/mesh.py) are accepted."""
     cfg = SliceConfig()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -313,15 +314,15 @@ def test_engine_refuses_what_it_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="mode"):
         MaskRCNN("serving", cfg, str(tmp_path), device="cpu")
     for flag in ("PHASE_DECONV", "ZFOLD_FUSION", "STEM_S2D",
-                 "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT", "VIEW_SHARDING"):
+                 "CROSS_LEVEL_FUSION", "LSTM_HOIST_INPUT"):
         bad = SliceConfig()
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
             check_supported(bad)
-    # the serving and training options are ported
+    # the serving and training options and view sharding are ported
     for flag in ("FOLD_BN", "UINT8_IMAGE_TRANSFER", "EXPOSE_FUSED_PYRAMID",
                  "TRAIN_BN", "BN_EVAL_BATCH_STATS", "REMAT",
-                 "TRILINEAR_REPROJECTION"):
+                 "TRILINEAR_REPROJECTION", "VIEW_SHARDING"):
         ok = SliceConfig()
         setattr(ok, flag, True)
         check_supported(ok)

@@ -235,20 +235,22 @@ def test_transformer_engine_detect_matches_jax_engine(tmp_path):
 
 def test_check_supported_accepts_slice3():
     """Every fusion mode and TRANSFORMER run, and so do the training
-    options TRILINEAR_REPROJECTION, TRAIN_BN and REMAT; VIEW_SHARDING and
-    the TPU lowerings (the hoisted ConvLSTM input conv among them) stay
-    refused, and GRID_REAS="transformer" points at the TRANSFORMER flag.
+    options TRILINEAR_REPROJECTION, TRAIN_BN and REMAT, and VIEW_SHARDING
+    (the mesh's, parallel/mesh.py); the TPU lowerings (the hoisted
+    ConvLSTM input conv among them) stay refused, and
+    GRID_REAS="transformer" points at the TRANSFORMER flag.
     FOLD_BN, once a refused lowering, is ported
     (tests/test_torch_detector.py::test_engine_refuses_what_it_cannot_run
     checks that it is accepted)."""
     for mode in ("add", "mean", "ident", "conv3d", "lstm3d"):
         check_supported(_mode_config(mode))
     check_supported(_xformer_config("faithful"))
-    for flag in ("TRILINEAR_REPROJECTION", "TRAIN_BN", "REMAT"):
+    for flag in ("TRILINEAR_REPROJECTION", "TRAIN_BN", "REMAT",
+                 "VIEW_SHARDING"):
         ok = _mode_config("lstm3d")
         setattr(ok, flag, True)
         check_supported(ok)
-    for flag in ("VIEW_SHARDING", "LSTM_HOIST_INPUT", "CROSS_LEVEL_FUSION"):
+    for flag in ("LSTM_HOIST_INPUT", "CROSS_LEVEL_FUSION"):
         bad = _mode_config("lstm3d")
         setattr(bad, flag, True)
         with pytest.raises(ValueError, match=flag):
