@@ -106,13 +106,17 @@ Phases, one line each (any failure exits non-zero):
                (main()), skipping the finished stages, to epoch 3: one
                metrics.jsonl line and one tfevents scalar event per epoch
                run, finite losses; then `evaluate --model last --limit 2`
-               prints a finite mAP@50 in [0, 1]. The resumed run must
-               launch the fused unprojection and the reprojection, forward
-               and backward (3 levels a step, forwards in the validation
-               step too), the evaluation both forwards, all in the main
-               paths' variants, on an engine whose weights are all on the
-               card. One JSON line: the step times, each key's evaluate
-               time and the launches.
+               prints a finite mAP@50 in [0, 1]; then `visualize --model
+               last --limit 2` (drawn with OpenCV where matplotlib is not
+               installed) writes <results>/NV2/<key>.jpg for the first 2
+               val keys, each a 640^2 JPEG that OpenCV decodes. The resumed
+               run must launch the fused unprojection and the reprojection,
+               forward and backward (3 levels a step, forwards in the
+               validation step too), the evaluation and the drawing both
+               forwards, all in the main paths' variants, on an engine
+               whose weights are all on the card. One JSON line: the step
+               times, each key's evaluate time, the drawing's time and
+               bytes, and the launches.
  12. serve   — the serving path (cli/serve.py's and cli/serve_bench.py's
                config: the flagship at bfloat16 with FOLD_BN, here with
                UINT8_IMAGE_TRANSFER on, batch 4). First the fused
@@ -207,7 +211,13 @@ Phases, one line each (any failure exits non-zero):
                |v|), gradients (split ones gathered) by phase 7's rule, the split leaves' updates by
                it beyond one float32 spacing of the weight, every whole
                parameter bit-equal on every rank and every split one on
-               the ranks that hold it (sha1 digests). (b) lstm3d
+               the ranks that hold it (sha1 digests). Then (1, 2, 2) once
+               more with a sharding fault planted before the views'
+               gather (MESH_PLANTED: the second view rank reads the first
+               view's images): the flip gate or the gradient gate must
+               refuse it; one line `[mesh_planted]` with each rank's
+               flips, the largest gradient error and which gate refused.
+               (b) lstm3d
                inference at 256^2 float32 on (2, 2, 1), each scene on its
                own (1, 2, 1): each rank's detections against the
                one-process run at phase 6's bar, the raw detections'
@@ -221,6 +231,14 @@ Phases, one line each (any failure exits non-zero):
                synchronisations for their share of it. One JSON line
                {"phase": "mesh", ...}; each rank's launches of (b) and
                (c) are paths of the kernels' record.
+ 15. eval_step — train/step.py::make_eval_step once at the flagship
+               config with TRAIN_BN and BN_EVAL_BATCH_STATS (the BatchNorm
+               statistics mildly randomised): 3 fused unprojection and 3
+               reprojection forwards in their vector variants, finite
+               outputs, every BatchNorm buffer bit-unchanged, the outputs
+               other than the frozen BatchNorms'. One JSON line
+               {"phase": "eval_step", ...}; its launches are a path of the
+               kernels' record.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -253,6 +271,8 @@ import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False — needs a GPU")
+
+import cv2  # noqa: E402
 
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -290,7 +310,7 @@ from mulit_view_object_detection_torch.train.optim import (  # noqa: E402
 from mulit_view_object_detection_torch.train import (  # noqa: E402
     step as step_module)
 from mulit_view_object_detection_torch.train.step import (  # noqa: E402
-    draw_priorities, loss_and_grads, train_step, val_step)
+    draw_priorities, loss_and_grads, make_eval_step, train_step, val_step)
 from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
     trainable_mask)
 from mulit_view_object_detection_torch.utils.convert import (  # noqa: E402
@@ -1429,8 +1449,9 @@ def _cli(argv, log):
 def phase_cli():
     """The InteriorNet command line at 640²: export a tree, train in a
     subprocess and SIGKILL it after epoch 1's checkpoint, resume in this
-    process to epoch 3, evaluate 2 keys. Returns the launch counts of the
-    resumed training and of the evaluation."""
+    process to epoch 3, evaluate 2 keys, draw 2 keys (`visualize`).
+    Returns the launch counts of the resumed training, the evaluation
+    and the drawing."""
     steps, val_steps, epochs, image_size = 2, 1, 3, 640
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         t = time.perf_counter()
@@ -1523,6 +1544,30 @@ def phase_cli():
             if eval_launches != want_eval:
                 raise RuntimeError(
                     f"cli evaluate launches {eval_launches} != {want_eval}")
+
+            results = os.path.join(work, "Results")
+            reset_counts()
+            t = time.perf_counter()
+            written, _ = _cli(["visualize", *common, "--model", "last",
+                               "--limit", "2", "--results", results], log)
+            torch.cuda.synchronize()
+            visualize_s = time.perf_counter() - t
+            vis_launches = read_counts()
+            keys = list(cli.load_dataset(os.path.join(work, "HD7"),
+                                         "val").view_map)[:2]
+            want_paths = [os.path.join(results, "NV2", f"{k}.jpg")
+                          for k in keys]
+            shapes = [getattr(cv2.imread(p), "shape", None)
+                      for p in want_paths]
+            if written != want_paths or shapes != [(image_size,
+                                                    image_size, 3)] * 2:
+                raise RuntimeError(f"cli visualize wrote {written} "
+                                   f"({shapes}), not {want_paths}")
+            check_variants("cli_visualize", vis_launches)
+            if vis_launches != want_eval:
+                raise RuntimeError(
+                    f"cli visualize launches {vis_launches} != {want_eval}")
+            vis_bytes = [os.path.getsize(p) for p in written]
         except Exception:
             log.flush()
             with open(log.name) as f:
@@ -1539,9 +1584,10 @@ def phase_cli():
         "train_step_ms_median": round(statistics.median(step_ms), 3),
         "evaluate_ms_per_key": key_ms, "evaluate_s": round(evaluate_s, 3),
         "mAP@50": mean_ap, "train_launches": train_launches,
-        "train_variants": variants, "evaluate_launches": eval_launches}),
-        flush=True)
-    return train_launches, eval_launches
+        "train_variants": variants, "evaluate_launches": eval_launches,
+        "visualize_s": round(visualize_s, 3), "visualize_bytes": vis_bytes,
+        "visualize_launches": vis_launches}), flush=True)
+    return train_launches, eval_launches, vis_launches
 
 
 def _iou(a, b):
@@ -2694,6 +2740,60 @@ def train_options_data_parallel():
     return out
 
 
+class EvalBNConfig(FlagshipConfig):
+    """The flagship inference config with BatchNorms in batch-statistics
+    mode at inference (make_eval_step's diagnostic)."""
+    NAME = "flagship_eval_bn"
+    TRAIN_BN = True
+    BN_EVAL_BATCH_STATS = True
+
+
+def phase_eval_step():
+    """train/step.py::make_eval_step once at the flagship config with
+    TRAIN_BN and BN_EVAL_BATCH_STATS, the BatchNorm statistics mildly
+    randomised: the fused unprojection and the reprojection launched 3
+    times each in their vector variants, every output finite, every
+    BatchNorm buffer bit-unchanged, and the outputs other than those of
+    the frozen BatchNorms. Returns the launches."""
+    cfg = EvalBNConfig()
+    eng = MaskRCNN("inference", cfg, "build")
+    eng.init_weights(torch.Generator().manual_seed(3))
+    mildly_randomise_bns(eng.model, 7)
+    rng = np.random.RandomState(4)
+    hw = cfg.IMAGE_MAX_DIM
+    molded, metas, _ = eng._mold_batch(request_images(rng, 1, hw,
+                                                      cfg.NUM_VIEWS))
+    batch = eng._device_batch(molded, metas, poses(rng, 1, cfg.NUM_VIEWS),
+                              intrinsics(1, hw), None)
+    before = {n: b.clone() for n, b in eng.model.named_buffers()}
+    step = make_eval_step(cfg)
+    step(eng.model, batch)                                 # warm-up
+    reset_counts()
+    t = time.perf_counter()
+    out = step(eng.model, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts()
+    check_variants("eval_step", launches)
+    changed = [n for n, b in eng.model.named_buffers()
+               if not torch.equal(b, before[n])]
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+    eng.model.config = FlagshipConfig()
+    frozen = step(eng.model, batch)
+    moved = float((frozen["rpn_probs"].float()
+                   - out["rpn_probs"].float()).abs().max())
+    print(json.dumps({"phase": "eval_step", "ms": round(ms, 3),
+                      "launches": launches, "buffers_changed": changed,
+                      "finite": finite,
+                      "rpn_probs_vs_frozen_bn_max_diff": moved}), flush=True)
+    if (launches != expected(unproject=3, reproject=3) or changed
+            or not finite or moved == 0.0):
+        raise RuntimeError(f"eval_step: launches {launches}, buffers "
+                           f"changed {changed[:3]}, finite {finite}, "
+                           f"vs frozen {moved}")
+    return launches
+
+
 def phase_train_options():
     """Phase 13; returns the launch counts of (a)'s training and (c)'s
     requests."""
@@ -2724,6 +2824,10 @@ MESH_PINNED = ((1, 2, 2), (2, 1, 2))
 # one-process step's: sound runs on the H100 flipped 0-6 a mesh, while a
 # sharding fault upstream of the gather flips a share of all of them
 MESH_FLIP_MAX = 32
+# (a) once more on this mesh with a sharding fault planted before the
+# views' gather (the second view rank reads the first one's images): the
+# flip gate or the gradient gate must refuse it
+MESH_PLANTED = (1, 2, 2)
 MESH_LABEL = "4 processes on one H100 over gloo"
 MESH_JOIN_S = 600
 
@@ -2799,13 +2903,30 @@ def _image_rows(mesh, b, v):
                          for i in range(bl * vl)])
 
 
-def _mesh_parity_case(shape, cfg, host, ref):
+def _wrong_view_slice(mesh):
+    """`parallel/mesh.py::shard_batch` with a sharding fault planted:
+    the view ranks past the first take the first view rank's images."""
+    shard_batch = parallel_mesh.shard_batch
+
+    def planted(batch, shardings):
+        local = shard_batch(batch, shardings)
+        if mesh.coord("view") > 0:
+            first = dict(batch, images=np.repeat(
+                batch["images"][:, :1], batch["images"].shape[1], axis=1))
+            local["images"] = shard_batch(first, shardings)["images"]
+        return local
+    return planted
+
+
+def _mesh_parity_case(shape, cfg, host, ref, plant=False):
     """(a) on one mesh: the step through make_parallel_train_step with
     the views sharded and the TP rule applied, the backbone's ReLU
     inputs' sign flips against the one-process step counted and, on the
     meshes of MESH_PINNED, pinned (`_BackboneRelu`); the losses, the
     gradients and the updated parameters (split ones gathered) against
-    the one-process step; digests of the whole parameters."""
+    the one-process step; digests of the whole parameters. `plant`: with
+    the wrong view slice on the second view rank (`_wrong_view_slice`),
+    a fault the gates must refuse."""
     mesh = parallel_mesh.make_mesh(*shape)
     eng = MaskRCNN("training", cfg, "build")
     eng.init_weights(torch.Generator().manual_seed(3))
@@ -2817,7 +2938,10 @@ def _mesh_parity_case(shape, cfg, host, ref):
                          cfg.LEARNING_MOMENTUM)
     parallel_mesh.shard_state_tp(model, opt, mesh)
     step = parallel_mesh.make_parallel_train_step(train_step, mesh, True)
-    with mock.patch.object(resnet_module, "F", relu):
+    fault = (mock.patch.object(parallel_mesh, "shard_batch",
+                               _wrong_view_slice(mesh)) if plant
+             else contextlib.nullcontext())
+    with mock.patch.object(resnet_module, "F", relu), fault:
         metrics = step(model, opt, host, cfg, trainable_mask(model, "all"),
                        torch.Generator(DEV).manual_seed(0))
     # the backbone's ReLUs in call order: the stem's, then each block's
@@ -3002,6 +3126,8 @@ def _mesh_rank(rank, port, outdir):
         cfg = DP256()
         out["parity"] = [_mesh_parity_case(shape, cfg, host, ref)
                          for shape in MESH_SHAPES]
+        out["planted"] = _mesh_parity_case(MESH_PLANTED, cfg, host, ref,
+                                           plant=True)
         del ref
         out["detect"], out["detect_launches"] = _mesh_detect(
             parallel_mesh.make_mesh(2, 2, 1))
@@ -3114,6 +3240,24 @@ def phase_mesh():
                 and max(case["rank_relu_flips"]) <= MESH_FLIP_MAX
                 and bool(case["split_leaves"]) == (model > 1)):
             failures.append(f"mesh {shape} != one process")
+    # the planted fault: refused by the flip gate or the gradient gate
+    planted = [r["planted"] for r in ranks]
+    flips = [c["relu_flip_total"] for c in planted]
+    out["planted"] = {
+        "mesh": MESH_PLANTED, "fault": "second view rank reads view 0",
+        "rank_relu_flips": flips,
+        "max_grad_err": max(c["max_grad_err"] for c in planted),
+        "grads_beyond_1e_3": max(c["grads_beyond_1e_3"] for c in planted),
+        "max_loss_err": max(c["max_loss_err"] for c in planted),
+        "flip_gate_refuses": max(flips) > MESH_FLIP_MAX,
+        "grad_gate_refuses": not all(c["grads_agree"] and
+                                     c["split_updates_agree"]
+                                     for c in planted)}
+    say("mesh_planted", **{k: json.dumps(v) if isinstance(v, (list, tuple))
+                           else v for k, v in out["planted"].items()})
+    if not (out["planted"]["flip_gate_refuses"]
+            or out["planted"]["grad_gate_refuses"]):
+        failures.append("mesh: the planted sharding fault passed both gates")
     # (b) each rank's scene against the one-process detect
     out["detect"] = []
     for r, rank in enumerate(ranks):
@@ -3185,11 +3329,13 @@ def main():
     paths["lstm3d_inference"] = phase_lstm_main()
     paths["lstm3d_train"] = phase_lstm_train()
     paths["xformer_inference"], paths["xformer_train"] = phase_xformer()
-    paths["cli_train"], paths["cli_evaluate"] = phase_cli()
+    paths["cli_train"], paths["cli_evaluate"], paths["cli_visualize"] = \
+        phase_cli()
     paths["serve"] = phase_serve(record)
     paths["bn_remat_train"], paths["trilinear_inference"] = \
         phase_train_options()
     paths.update(phase_mesh())
+    paths["eval_step"] = phase_eval_step()
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

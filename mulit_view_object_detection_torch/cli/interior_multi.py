@@ -1,4 +1,4 @@
-"""Multi-view InteriorNet command line: train / evaluate.
+"""Multi-view InteriorNet command line: train / evaluate / visualize.
 
 The port of `mulit_view_object_detection_tpu/cli/interior_multi.py`,
 which mirrors samples/interior/interior_multi.py:335-605: the same
@@ -18,7 +18,9 @@ Differences from the JAX command line:
     for `--device cpu` or where torchrun or SLURM put more processes on
     a host than it has GPUs, else NCCL; each process on the GPU of its
     local rank; rank 0 alone writes checkpoints and logs;
-  * not ported yet: the `visualize` command.
+  * `visualize` writes under `--results` (default "Results", the JAX
+    command's fixed directory), and draws with OpenCV where matplotlib
+    is not installed.
 
 Usage:
   python -m mulit_view_object_detection_torch.cli.interior_multi train \
@@ -29,12 +31,16 @@ Usage:
       --process-id 0
   python -m mulit_view_object_detection_torch.cli.interior_multi evaluate \
       --dataset /path/to/InteriorNet/HD7 --model last --logs ./logs
+  # Results/NV2/<key>.jpg: detections drawn on each key's main view
+  python -m mulit_view_object_detection_torch.cli.interior_multi visualize \
+      --dataset /path/to/InteriorNet/HD7 --model last --logs ./logs
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import os
 import time
 
 import numpy as np
@@ -48,6 +54,7 @@ from ..data.interiornet import InteriorNetDataset
 from ..data.molding import resize_image
 from ..eval.metrics import compute_ap, compute_ap_range
 from ..parallel.distributed import init_distributed, local_device
+from ..utils import visualize
 
 DEFAULT_LOGS_DIR = "logs"
 
@@ -255,6 +262,39 @@ def cmd_evaluate(args):
     return mean_ap
 
 
+def cmd_visualize(args):
+    """Detections of the first --limit (default 20) keys of the val
+    subset's view map, each drawn on its main view into
+    <results>/NV<views>/<key>.jpg. Returns the paths written."""
+    config = _apply_overrides(InferenceConfig(), args.overrides)
+    model = MaskRCNN("inference", config, args.logs, device=args.device)
+    _load_model_weights(model, args)
+    dataset_val = load_dataset(args.dataset, "val")
+    keys = list(dataset_val.view_map.keys())[:args.limit or 20]
+    out_dir = os.path.join(args.results, f"NV{config.NUM_VIEWS}")
+    paths = []
+    for key in keys:
+        view_ids = dataset_val.load_view(5, key, rnd_state=0)
+        if view_ids is None:
+            continue
+        view_ids = view_ids[:config.NUM_VIEWS]
+        views, R = [], np.zeros((1, config.NUM_VIEWS, 3, 4), np.float32)
+        for i, vid in enumerate(view_ids):
+            im = dataset_val.load_image(vid)
+            im, *_ = resize_image(im, min_dim=config.IMAGE_MIN_DIM,
+                                  max_dim=config.IMAGE_MAX_DIM,
+                                  mode=config.IMAGE_RESIZE_MODE)
+            views.append(im)
+            R[0, i] = dataset_val.load_R(vid)
+        r = model.detect([np.stack(views)], Rcam=R,
+                         Kmat=dataset_val.K[None].astype(np.float32))[0]
+        paths.append(visualize.save_image(
+            views[0], str(key), r["rois"], r["masks"], r["class_ids"],
+            r["scores"], SELECTED_CLASSES, save_dir=out_dir, mode=0))
+        print(f"saved {key} -> {out_dir}")
+    return paths
+
+
 def base_parser(description, commands):
     """The arguments every InteriorNet command line shares."""
     parser = argparse.ArgumentParser(description=description)
@@ -271,15 +311,19 @@ def base_parser(description, commands):
     parser.add_argument("--device", default="cuda",
                         help="torch device of the engine (default: cuda; "
                              "cpu runs the plain versions of the kernels)")
+    if "visualize" in commands:
+        parser.add_argument("--results", default="Results",
+                            help="visualize: the directory the images go "
+                                 "under")
     return parser
 
 
 def main(argv=None):
-    """Run a command; returns the trained engine (train) or the mean AP
-    (evaluate)."""
+    """Run a command; returns the trained engine (train), the mean AP
+    (evaluate) or the images' paths (visualize)."""
     parser = base_parser(
-        "Train/evaluate multi-view Mask R-CNN on InteriorNet.",
-        ["train", "evaluate"])
+        "Train/evaluate/visualize multi-view Mask R-CNN on InteriorNet.",
+        ["train", "evaluate", "visualize"])
     parser.add_argument("--overrides", default="",
                         help="config overrides KEY=VAL,... (the command-"
                              "line analog of the reference's subclass-and-"
@@ -307,9 +351,8 @@ def main(argv=None):
     if parallel:
         args.device = str(local_device(args.device))
     try:
-        if args.command == "train":
-            return cmd_train(args)
-        return cmd_evaluate(args)
+        return {"train": cmd_train, "evaluate": cmd_evaluate,
+                "visualize": cmd_visualize}[args.command](args)
     finally:
         if parallel:
             dist.destroy_process_group()

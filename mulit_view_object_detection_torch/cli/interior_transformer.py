@@ -1,4 +1,5 @@
-"""Transformer view-fusion InteriorNet command line: train / evaluate.
+"""Transformer view-fusion InteriorNet command line: train / evaluate /
+visualize.
 
 The port of `mulit_view_object_detection_tpu/cli/interior_transformer.py`,
 which mirrors samples/interior/interior_transformer.py: TrainConfig at
@@ -6,7 +7,8 @@ which mirrors samples/interior/interior_transformer.py: TrainConfig at
 +-5, GRID_DIST = 6, samples = 1, NUM_VIEWS = 2, GRID_REAS = 'ident',
 TRANSFORMER = True), the depth-conditioned detect(..., depths) at :572,
 and evaluation on the 'test' subset (:530). It runs on the card unless
-`--device cpu` is given. Not ported yet: the `visualize` command.
+`--device cpu` is given. `visualize` draws the test subset's detections
+into <--results>/transformer/<key>.jpg (as cli/interior_multi.py's).
 
     python -m mulit_view_object_detection_torch.cli.interior_transformer \
         evaluate --dataset /path/to/InteriorNet/HD7 --model last
@@ -14,12 +16,16 @@ and evaluation on the 'test' subset (:530). It runs on the card unless
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..compat import MaskRCNN
+from ..data.classes import SELECTED_CLASSES
 from ..data.generator import load_image_gt
 from ..data.molding import resize_image
 from ..eval.metrics import compute_ap
+from ..utils import visualize
 from .interior_multi import (InteriorNetConfig, _load_model_weights,
                              base_parser, load_dataset)
 
@@ -112,10 +118,38 @@ def cmd_evaluate(args):
     return mean_ap
 
 
+def cmd_visualize(args):
+    """Detections of the first --limit (default 20) keys of the test
+    subset, each drawn on its main view into <results>/transformer/
+    <key>.jpg. Returns the paths written."""
+    config = TransformerInferenceConfig()
+    model = MaskRCNN("inference", config, args.logs, device=args.device)
+    _load_model_weights(model, args)
+    dataset = load_dataset(args.dataset, "test")
+    out_dir = os.path.join(args.results, "transformer")
+    paths = []
+    for key in list(dataset.view_map.keys())[:args.limit or 20]:
+        view_ids = dataset.load_view(5, key, rnd_state=0)
+        if view_ids is None:
+            continue
+        view_ids = view_ids[:config.NUM_VIEWS]
+        r = _detect_with_depth(model, dataset, config, view_ids)[0]
+        im = dataset.load_image(view_ids[0])
+        im, *_ = resize_image(im, min_dim=config.IMAGE_MIN_DIM,
+                              max_dim=config.IMAGE_MAX_DIM,
+                              mode=config.IMAGE_RESIZE_MODE)
+        paths.append(visualize.save_image(
+            im, str(key), r["rois"], r["masks"], r["class_ids"],
+            r["scores"], SELECTED_CLASSES, save_dir=out_dir, mode=0))
+    return paths
+
+
 def main(argv=None):
-    args = base_parser("Train/evaluate transformer view fusion on "
-                       "InteriorNet.", ["train", "evaluate"]).parse_args(argv)
-    return {"train": cmd_train, "evaluate": cmd_evaluate}[args.command](args)
+    args = base_parser("Train/evaluate/visualize transformer view fusion "
+                       "on InteriorNet.",
+                       ["train", "evaluate", "visualize"]).parse_args(argv)
+    return {"train": cmd_train, "evaluate": cmd_evaluate,
+            "visualize": cmd_visualize}[args.command](args)
 
 
 if __name__ == "__main__":

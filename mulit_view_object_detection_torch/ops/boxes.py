@@ -71,6 +71,21 @@ def box_refinement(box, gt_box):
                         torch.log(gt_width / width)], dim=-1)
 
 
+def iou_one_to_many(box, boxes):
+    """IoU of one box [4] against boxes [N, 4] -> [N]; an empty union
+    gives 0."""
+    y1 = torch.maximum(box[0], boxes[:, 0])
+    x1 = torch.maximum(box[1], boxes[:, 1])
+    y2 = torch.minimum(box[2], boxes[:, 2])
+    x2 = torch.minimum(box[3], boxes[:, 3])
+    inter = (y2 - y1).clamp_min(0) * (x2 - x1).clamp_min(0)
+    area = (box[2] - box[0]) * (box[3] - box[1])
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    union = area + areas - inter
+    pos = union > 0
+    return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+
+
 def norm_boxes(boxes, shape):
     """Pixel -> normalized coordinates, (h-1, w-1) convention."""
     h, w = shape[0], shape[1]
@@ -80,8 +95,18 @@ def norm_boxes(boxes, shape):
     return (boxes.float() - shift) / scale
 
 
+def denorm_boxes(boxes, shape):
+    """Normalized -> pixel coordinates, int32 (utils.py:1129-1143)."""
+    h, w = shape[0], shape[1]
+    scale = boxes.new_tensor([h - 1, w - 1, h - 1, w - 1],
+                             dtype=torch.float32)
+    shift = boxes.new_tensor([0.0, 0.0, 1.0, 1.0], dtype=torch.float32)
+    return torch.round(boxes * scale + shift).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
-# numpy (host: dataset preparation), copies of the JAX package's
+# numpy (host: dataset preparation, evaluation), copies of the JAX
+# package's
 # ---------------------------------------------------------------------------
 
 def compute_overlaps_np(boxes1, boxes2):
@@ -117,10 +142,53 @@ def compute_overlaps_masks_np(masks1, masks2):
     return inter / np.maximum(union, 1e-10)
 
 
+def _areas_np(boxes):
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def compute_iou_np(box, boxes, box_area, boxes_area):
+    """IoU of one box [4] against boxes [N, 4], no epsilon: a degenerate
+    union propagates as in the reference (utils.py:319-337)."""
+    lo = np.maximum(box[:2], boxes[:, :2])
+    hi = np.minimum(box[2:4], boxes[:, 2:4])
+    inter = np.prod(np.maximum(hi - lo, 0), axis=-1)
+    return inter / (box_area + boxes_area - inter)
+
+
+def non_max_suppression_np(boxes, scores, threshold):
+    """Greedy score-descending NMS; returns the kept indices, int32. A box
+    goes at an IoU strictly above `threshold` (utils.py:381-415)."""
+    assert boxes.shape[0] > 0
+    boxes = boxes.astype(np.float32) if boxes.dtype.kind != "f" else boxes
+    areas = _areas_np(boxes)
+    order = scores.argsort()[::-1]
+    alive = np.ones(boxes.shape[0], dtype=bool)
+    kept = []
+    for rank in range(order.shape[0]):
+        idx = order[rank]
+        if not alive[idx]:
+            continue
+        kept.append(idx)
+        rest = order[rank + 1:]
+        iou = compute_iou_np(boxes[idx], boxes[rest], areas[idx],
+                             areas[rest])
+        alive[rest[iou > threshold]] = False
+    return np.asarray(kept, dtype=np.int32)
+
+
 def _box_geometry_np(boxes):
     """(centers [N, (cy, cx)], sizes [N, (h, w)]) of float32 boxes."""
     sizes = boxes[:, 2:4] - boxes[:, 0:2]
     return boxes[:, 0:2] + 0.5 * sizes, sizes
+
+
+def apply_box_deltas_np(boxes, deltas):
+    """Apply (dy, dx, log dh, log dw) refinements (utils.py:418-439)."""
+    centers, sizes = _box_geometry_np(boxes.astype(np.float32))
+    centers = centers + deltas[:, 0:2] * sizes
+    sizes = sizes * np.exp(deltas[:, 2:4])
+    corner = centers - 0.5 * sizes
+    return np.concatenate([corner, corner + sizes], axis=1)
 
 
 def box_refinement_np(box, gt_box):

@@ -8,14 +8,15 @@ gives), build the "j suppresses i" matrix T (j before i, IoU >
 threshold, optional class gating), and iterate kept[i] = valid[i] and
 not any_j(T[j, i] and kept[j]) until it is stable. The fixed point is
 exactly greedy NMS's kept set. Suppression gated on class equality equals
-independent per-class NMS merged in score order.
+independent per-class NMS merged in score order. `nms_sequential` is the
+direct K-step argmax-and-suppress loop (the JAX package's oracle).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .boxes import overlaps
+from .boxes import iou_one_to_many, overlaps
 
 _NEG_INF = -1e9
 
@@ -50,4 +51,29 @@ def nms(boxes, scores, max_output_size, iou_threshold, valid_mask=None,
     sel = order[kept][:k]
     keep_idx = torch.full((k,), -1, dtype=torch.int64, device=boxes.device)
     keep_idx[:sel.shape[0]] = sel
+    return keep_idx, keep_idx >= 0
+
+
+def nms_sequential(boxes, scores, max_output_size, iou_threshold,
+                   valid_mask=None, class_ids=None):
+    """The direct greedy loop: K times, keep the best live box (the first
+    of equal scores) and suppress it and every live box above
+    `iou_threshold` with it (of its class, with `class_ids`). Arguments
+    and returns as `nms`."""
+    n = boxes.shape[0]
+    live = scores.float()
+    if valid_mask is not None:
+        live = torch.where(valid_mask, live, _NEG_INF)
+    keep_idx = torch.full((max_output_size,), -1, dtype=torch.int64,
+                          device=boxes.device)
+    ids = torch.arange(n, device=boxes.device)
+    for k in range(max_output_size):
+        i = torch.argmax(live)
+        is_valid = live[i] > _NEG_INF / 2
+        keep_idx[k] = torch.where(is_valid, i, -1)
+        suppress = iou_one_to_many(boxes[i], boxes) > iou_threshold
+        if class_ids is not None:
+            suppress &= class_ids == class_ids[i]
+        suppress = (suppress | (ids == i)) & is_valid
+        live = torch.where(suppress, _NEG_INF, live)
     return keep_idx, keep_idx >= 0

@@ -47,6 +47,36 @@ def voxel_grid_points(config):
     return pts.astype(np.float32)
 
 
+def camera_anchored_grid_points(config, Rcam):
+    """Camera-anchored voxel lattice (Notebook/projection.py:80-99): the
+    grid centred at R0 · [0, 0, GRID_DIST, 1], GRID_DIST metres along the
+    main view's optical axis in world coordinates, with symmetric
+    ±(n-1)/2·vsize ranges per axis (a sandbox variant; the model reads
+    `voxel_grid_points`).
+
+    Rcam: [B, V, 3, 4] cam->world poses, a tensor or an array. Returns
+    [B, 4, N] float32 numpy homogeneous world-frame voxel centres, index
+    order (x, y, z) with z fastest."""
+    if isinstance(Rcam, torch.Tensor):
+        Rcam = Rcam.detach().cpu().numpy()
+    Rcam = np.asarray(Rcam, np.float64)
+    b = Rcam.shape[0]
+    vsize = (config.vmax - config.vmin) / config.nvox
+    vsize_z = (config.vmax_z - config.vmin_z) / config.nvox_z
+    grid_dist = getattr(config, "GRID_DIST", None)
+    if grid_dist is None:  # the Notebook's fallback (projection.py:88-89)
+        grid_dist = 600.0 / 320.0 * config.vmax
+    r = (np.arange(config.nvox) - (config.nvox - 1) / 2.0) * vsize
+    rz = (np.arange(config.nvox_z) - (config.nvox_z - 1) / 2.0) * vsize_z
+    center = np.einsum("bij,j->bi", Rcam[:, 0],
+                       np.array([0.0, 0.0, grid_dist, 1.0]))   # [B, 3]
+    xs, ys, zs = np.meshgrid(r, r, rz, indexing="ij")
+    lattice = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=0)
+    pts = center[:, :, None] + lattice[None]                  # [B, 3, N]
+    ones = np.ones((b, 1, pts.shape[-1]))
+    return np.concatenate([pts, ones], axis=1).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Camera math
 # ---------------------------------------------------------------------------

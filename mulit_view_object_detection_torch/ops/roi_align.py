@@ -64,10 +64,12 @@ def _bilinear(flat, bidx, off, width, ys, xs, h_lim, w_lim):
     return torch.where(valid, out, 0.0)
 
 
-def crop_and_resize(images, boxes, size):
+def crop_and_resize_pairs(images, boxes, size, extrapolation_value=0.0):
     """Bilinear crop of images[i] [N, H, W, C] by boxes[i] [N, 4]
-    normalized (1:1 pairing) to size (Sh, Sw) -> [N, Sh, Sw, C]; matches
-    tf.image.crop_and_resize(images, boxes, range(N), size)."""
+    normalized (1:1 pairing) to size (Sh, Sw) -> [N, Sh, Sw, C], samples
+    outside the image `extrapolation_value`; matches
+    tf.image.crop_and_resize(images, boxes, range(N), size) (mask
+    targets, model.py:598-600)."""
     n, h, w, c = images.shape
     sh, sw = size
     boxes = boxes.float()
@@ -79,6 +81,10 @@ def crop_and_resize(images, boxes, size):
     bidx = torch.arange(n, device=images.device)[:, None, None]
     out = _bilinear(images.reshape(n, h * w, c), bidx, zeros,
                     torch.full_like(zeros, w), ys, xs, hm1, wm1)
+    if extrapolation_value:
+        valid = (((ys >= 0) & (ys <= h - 1))[:, :, None]
+                 & ((xs >= 0) & (xs <= w - 1))[:, None, :])[..., None]
+        out = torch.where(valid, out, float(extrapolation_value))
     return out.to(images.dtype)
 
 

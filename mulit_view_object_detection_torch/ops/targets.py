@@ -24,7 +24,7 @@ import torch
 
 from ..data.native import MAX_NATIVE_GT, anchor_gt_match, anchor_gt_match_np
 from .boxes import box_refinement, box_refinement_np, overlaps
-from .roi_align import crop_and_resize
+from .roi_align import crop_and_resize_pairs
 
 _NEG_INF = -1e9
 _DUMMY_BOX = (0.0, 0.0, 1.0, 1.0)
@@ -106,7 +106,7 @@ def detection_targets(proposals, gt_class_ids, gt_boxes, gt_masks,
             (safe_rois[:, 3] - safe_gt[:, 1]) / gt_w], dim=1)
     else:
         crop_boxes = safe_rois
-    masks = crop_and_resize(roi_masks, crop_boxes, tuple(mask_shape))
+    masks = crop_and_resize_pairs(roi_masks, crop_boxes, tuple(mask_shape))
     masks = torch.round(masks[..., 0])                 # binarise (:606)
     masks = torch.where(pos_valid[:, None, None], masks, 0.0)
 

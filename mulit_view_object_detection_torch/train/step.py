@@ -224,6 +224,23 @@ def val_step(model, batch, config, generator, group=None):
                    group)
 
 
+def make_eval_step(config):
+    """The inference step of the JAX `make_eval_step`: returns
+    eval_step(model, batch) -> the inference outputs, the batch's tensors
+    on the model's device, the model standing for the JAX TrainState.
+    The BatchNorms follow the model's config (`config`, as the engine
+    builds it): with TRAIN_BN and BN_EVAL_BATCH_STATS (a diagnostic) they
+    normalise with the batch's statistics, which the forward drops, so
+    the running statistics stay as they are."""
+    del config  # the model reads its own
+
+    @torch.no_grad()
+    def eval_step(model, batch):
+        return model(batch, training=False)
+
+    return eval_step
+
+
 def _floats(metrics, group=None):
     """The metrics as floats; under `group` summed over its (data) ranks
     (each holds its share of the global losses)."""

@@ -42,7 +42,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from mulit_view_object_detection_tpu.utils.h5_fixture import (  # noqa: E402
+from mulit_view_object_detection_torch.utils.h5_fixture import (  # noqa: E402
     write_h5_from_inventory, write_matterport_h5)
 from mulit_view_object_detection_tpu.utils.h5_import import (  # noqa: E402
     load_h5_weights)

@@ -36,7 +36,7 @@ from mulit_view_object_detection_torch.ops.nms import nms  # noqa: E402
 from mulit_view_object_detection_torch.ops.proposals import (  # noqa: E402
     generate_proposals)
 from mulit_view_object_detection_torch.ops.roi_align import (  # noqa: E402
-    crop_and_resize, pyramid_roi_align)
+    crop_and_resize_pairs, pyramid_roi_align)
 from tests.test_torch_convert import TinyMultiView  # noqa: E402
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_tf.npz")
@@ -113,8 +113,8 @@ def test_proposals_const_span_ties_match_jax():
 @pytest.mark.parametrize("size", [(7, 7), (1, 1), (3, 5)])
 def test_crop_and_resize_matches_tf(golden, size):
     key = f"car_{size[0]}x{size[1]}"
-    got = crop_and_resize(_t(golden[f"{key}_images"]),
-                          _t(golden[f"{key}_boxes"]), size)
+    got = crop_and_resize_pairs(_t(golden[f"{key}_images"]),
+                                _t(golden[f"{key}_boxes"]), size)
     np.testing.assert_allclose(got.numpy(), golden[f"{key}_expected"],
                                rtol=1e-5, atol=1e-5)
 
