@@ -239,6 +239,29 @@ Phases, one line each (any failure exits non-zero):
                other than the frozen BatchNorms'. One JSON line
                {"phase": "eval_step", ...}; its launches are a path of the
                kernels' record.
+ 16. train_to_ap — the quality harness (cli/train_to_ap.py) at 64^2, 2
+               views, conv3d: first every kernel call of a 2-step run
+               and its evaluation (min confidence 0) held to its plain
+               version on a CPU copy of its inputs, at this path's shapes
+               (C = 64, P2-P6 maps of 16^2 down to 1^2, a 16^3 grid, 8
+               samples), with phase 3's tolerances; then (a) 200 steps
+               from scratch with --smoke
+               --diagnostics (TRAIN_BN, 5 projected levels), its
+               evaluation and diagnostics; the mean loss of the last 20
+               steps must fall below TTA_LOSS_FRACTION of the first 20's,
+               and a 60-step run with its learning rate planted at 1e-9
+               (no evaluation) must fail that gate. The fused
+               unprojection and the reprojection, forward and backward,
+               launched 5 levels a step, the forwards also 5 a detect and
+               a run_graph call of the evaluation, in the main paths'
+               variants. (b), started after (a)'s timed run and run
+               beside the planted one: cli/train_supervisor.py as a
+               subprocess with
+               --max-rss-gb 0.001 (every segment passes its budget after
+               one step) to --until-step 2: two segments exit 75, a third
+               resumes at step 2 and ends with cumulative_seconds. One
+               JSON line {"phase": "train_to_ap", ...}; (a)'s launches are
+               a path of the kernels' record.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -279,6 +302,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from mulit_view_object_detection_torch.cli import interior_multi as cli  # noqa: E402
 from mulit_view_object_detection_torch.cli import serve_bench  # noqa: E402
+from mulit_view_object_detection_torch.cli import (  # noqa: E402
+    train_to_ap as tta)
 from mulit_view_object_detection_torch.cli.export_synthetic_interiornet import (  # noqa: E402
     export_subset)
 from mulit_view_object_detection_torch.compat import MaskRCNN  # noqa: E402
@@ -2794,6 +2819,194 @@ def phase_eval_step():
     return launches
 
 
+TTA_STEPS = 200
+TTA_DEVICE = "cuda"
+TTA_SIZE = ["--image-size", "64", "--num-views", "2", "--scenes", "2"]
+# final_loss (mean of the last 20 steps) below this share of initial_loss
+# (the first 20's): the geometric middle of the first run's 0.0685 and the
+# planted run's 0.9637 (NVIDIA H100 80GB HBM3, 700 W), 3.6x from each
+TTA_LOSS_FRACTION = 0.25
+TTA_PLANTED_LR = "1e-9"
+TTA_PLANTED_STEPS = 60    # first and last 20 steps apart
+
+
+# the harness path's kernel wrappers: (kernel, module, wrapper, its plain
+# version, the arguments the plain version takes after the wrapper's)
+_WRAPPERS = (
+    ("unproject", unproject, "gather_fused", plain.bilinear_gather_fused,
+     lambda a: ()),
+    ("unproject_bwd", unproject, "gather_fused_bwd",
+     plain.bilinear_gather_fused_bwd,
+     lambda a: (a[0].dtype,) if len(a) == 8 else (True, a[0].dtype)),
+    ("unproject_view", unproject, "gather", plain.bilinear_gather,
+     lambda a: ()),
+    ("unproject_view_bwd", unproject, "gather_bwd", plain.bilinear_gather_bwd,
+     lambda a: (a[0].dtype,)),
+    ("reproject", reproject, "gather", plain.zslice_gather, lambda a: ()),
+    ("reproject_bwd", reproject, "gather_bwd", plain.zslice_gather_bwd,
+     lambda a: (a[0].dtype,)),
+)
+
+
+@contextlib.contextmanager
+def held_to_plain(record):
+    """Inside, every kernel call also runs the kernel's plain version on
+    a CPU copy of its inputs and is held to it with `_check`'s tolerance
+    (raising past it); record[kernel] = [calls, max abs error, shapes of
+    its first input]."""
+    saved = []
+    for key, mod, name, ref, extra in _WRAPPERS:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def held(*a, _fn=fn, _key=key, _ref=ref, _extra=extra, **k):
+            out = _fn(*a, **k)
+            want = _ref(*[x.detach().cpu() if torch.is_tensor(x) else x
+                          for x in a], *_extra(a), **k)
+            err, _ = _check(_key, out.detach(), want, out.dtype)
+            entry = record.setdefault(_key, [0, 0.0, []])
+            entry[0] += 1
+            entry[1] = max(entry[1], err)
+            if list(a[0].shape) not in entry[2]:
+                entry[2].append(list(a[0].shape))
+            return out
+        setattr(mod, name, held)
+    try:
+        yield record
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _tta(argv, log):
+    """train_to_ap.main(argv) in this process, its standard output
+    appended to `log`; returns its result."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return tta.main(argv)
+    finally:
+        log.write(out.getvalue())
+
+
+def phase_train_to_ap():
+    """Phase 16: (a) the harness trains 200 steps at 64^2 and must pass
+    the loss gate, a planted learning rate of 1e-9 must not; (b) the
+    supervisor restarts segments to --until-step 2, in subprocesses
+    that run beside the planted run. Returns (a)'s launches."""
+    t0 = time.perf_counter()
+    failures = []
+    levels = 5 - len(tta.build_config(64, 2).ZERO_PG_LEVELS)
+    sup = None
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        log = open(os.path.join(work, "train_to_ap.log"), "w")
+        ckpt, out = os.path.join(work, "ck"), os.path.join(work, "sup.json")
+        sup_log = open(os.path.join(work, "supervisor.log"), "w+")
+        try:
+            # every kernel call of 2 steps and an evaluation with detections
+            # (min confidence 0) against its plain version, at this path's
+            # shapes; not counted
+            held = {}
+            with held_to_plain(held):
+                _tta(TTA_SIZE + ["--steps", "2", "--smoke", "--min-conf", "0",
+                                 "--device", TTA_DEVICE], log)
+            for key in ("unproject", "unproject_bwd", "reproject",
+                        "reproject_bwd"):
+                if not held.get(key, [0])[0]:
+                    failures.append(f"{key} never held to its plain version")
+            reset_counts()
+            t = time.perf_counter()
+            args = TTA_SIZE + ["--steps", str(TTA_STEPS), "--smoke",
+                               "--device", TTA_DEVICE]
+            result = _tta(args + ["--diagnostics"], log)
+            seconds = time.perf_counter() - t
+            launches = read_counts()
+            check_variants("train_to_ap", launches)
+            # evaluation: a detect a scene; diagnostics: a detect and a
+            # run_graph a scene
+            calls = TTA_STEPS + 3 * len(result["diagnostics"]["per_scene"])
+            want = expected(unproject=levels * calls,
+                            unproject_bwd=levels * TTA_STEPS,
+                            reproject=levels * calls,
+                            reproject_bwd=levels * TTA_STEPS)
+            if launches != want:
+                failures.append(f"launches {launches} != {want}")
+            ratio = result["final_loss"] / result["initial_loss"]
+            if not ratio < TTA_LOSS_FRACTION:
+                failures.append(f"final/initial loss {ratio:.4f} is not below "
+                                f"{TTA_LOSS_FRACTION}")
+            # (b) the supervisor, its segments in subprocesses, after (a)'s
+            # timed run and beside the planted one
+            t_sup = time.perf_counter()
+            sup = subprocess.Popen(
+                [sys.executable, "-m",
+                 "mulit_view_object_detection_torch.cli.train_supervisor",
+                 "--max-rss-gb", "0.001", "--", "--until-step", "2",
+                 "--ckpt", ckpt, "--smoke", "--skip-eval", "--device",
+                 TTA_DEVICE, *TTA_SIZE, "--out", out], cwd=ROOT,
+                stdout=sup_log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+            planted = _tta(TTA_SIZE + ["--steps", str(TTA_PLANTED_STEPS),
+                                       "--smoke", "--device", TTA_DEVICE,
+                                       "--lr", TTA_PLANTED_LR, "--skip-eval"],
+                           log)
+            planted_ratio = planted["final_loss"] / planted["initial_loss"]
+            if planted_ratio < TTA_LOSS_FRACTION:
+                failures.append(f"the planted lr {TTA_PLANTED_LR} passed the "
+                                f"gate ({planted_ratio:.4f})")
+        except BaseException:
+            # stop the supervisor and its segment on a failure
+            if sup is not None:
+                os.killpg(sup.pid, signal.SIGKILL)
+                sup.wait()
+            raise
+        sup.wait(timeout=600)
+        sup_seconds = time.perf_counter() - t_sup
+        sup_log.seek(0)
+        sup_out = sup_log.read()
+        sup_log.close()
+        log.write(sup_out)
+        log.close()
+        exits_75 = sup_out.count("exiting 75 for supervised restart")
+        sup_result = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                sup_result = json.load(f)
+        if (sup.returncode != 0 or exits_75 != 2
+                or sup_result.get("steps") != 2
+                or not sup_result.get("cumulative_seconds")):
+            failures.append(f"supervisor: rc {sup.returncode}, {exits_75} "
+                            f"exits 75, result {sup_result}: "
+                            f"{sup_out[-1500:]}")
+        if failures:
+            with open(os.path.join(work, "train_to_ap.log")) as f:
+                tail = f.read()[-3000:]
+    diag = result["diagnostics"]
+    print(json.dumps({
+        "phase": "train_to_ap", "card": SMI[0], "steps": TTA_STEPS,
+        "seconds": round(seconds, 2),
+        "step_ms": round(result["seconds"] / TTA_STEPS * 1e3, 2),
+        "initial_loss": result["initial_loss"],
+        "final_loss": result["final_loss"],
+        "loss_ratio": round(ratio, 4), "gate": TTA_LOSS_FRACTION,
+        "planted_lr": float(TTA_PLANTED_LR),
+        "planted_loss_ratio": round(planted_ratio, 4),
+        "planted_refused": planted_ratio >= TTA_LOSS_FRACTION,
+        "ap50": result["ap50"],
+        "diagnostics": {k: v for k, v in diag.items() if k != "per_scene"},
+        "device": result["device"], "launches": launches,
+        "held_to_plain": held,
+        "supervisor": {"rc": sup.returncode, "exits_75": exits_75,
+                       "steps": sup_result.get("steps"),
+                       "cumulative_seconds":
+                           sup_result.get("cumulative_seconds"),
+                       "seconds": round(sup_seconds, 2)},
+        "phase_seconds": round(time.perf_counter() - t0, 2)}), flush=True)
+    if failures:
+        raise RuntimeError(f"train_to_ap phase: {failures}\n{tail}")
+    return launches
+
+
 def phase_train_options():
     """Phase 13; returns the launch counts of (a)'s training and (c)'s
     requests."""
@@ -3336,6 +3549,7 @@ def main():
         phase_train_options()
     paths.update(phase_mesh())
     paths["eval_step"] = phase_eval_step()
+    paths["train_to_ap"] = phase_train_to_ap()
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

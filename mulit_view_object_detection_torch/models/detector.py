@@ -34,7 +34,11 @@ The dtype policy is flax's:
 every parameter is float32, and under COMPUTE_DTYPE "bfloat16" the
 convolutions cast their weights and inputs to bf16 at use
 (`models/layers.py`), so activations are bf16; BatchNorm normalises in
-float32, and geometry, scores, boxes and losses stay float32.
+float32, and geometry, scores, boxes and losses stay float32. Under
+"float32" the model computes in float32 on the card as well: its forward
+(and, in `train/step.py`, its backward) runs with cuDNN's and cuBLAS's
+TF32 off (`float32_arithmetic`), which the H100 would otherwise use for
+float32 convolutions.
 
 `forward(batch, training=True)` is the training graph of the JAX module
 (detector.py:166-241): proposals at POST_NMS_ROIS_TRAINING with their
@@ -49,6 +53,7 @@ there); inference is deterministic.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -97,6 +102,26 @@ def view_group_of(mesh, views, num_views):
         return mesh.view_group
     raise ValueError(f"images carry {views} views: not the config's "
                      f"{num_views}, nor a 1/{n} shard of them")
+
+
+@contextlib.contextmanager
+def float32_arithmetic(model):
+    """While inside, a model of COMPUTE_DTYPE "float32" computes float32
+    convolutions and matmuls in float32 on the card: cuDNN's and cuBLAS's
+    TF32 are off, and restored on exit. Nothing changes for a bfloat16
+    model, or for an object that is not a MaskRCNN."""
+    if getattr(model, "compute_dtype", None) is not torch.float32:
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class MaskRCNN(nn.Module):
@@ -231,7 +256,8 @@ class MaskRCNN(nn.Module):
             stats = None
         elif stats is None:
             stats = BatchStats()
-        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()), \
+                float32_arithmetic(self):
             return self._forward(batch, training, stats, mesh)
 
     def _forward(self, batch, training, stats, mesh):

@@ -24,6 +24,25 @@ def make_optimizer(params, learning_rate, momentum=0.9):
                            dampening=0.0, nesterov=False, weight_decay=0.0)
 
 
+def warmup_schedule(base_lr, warmup_steps, drop_step=0):
+    """step -> learning rate, step the absolute count of updates: linear
+    from 0 to `base_lr` over `warmup_steps` (optax.linear_schedule, whose
+    first update has rate 0), then from `drop_step` on (if > 0) a constant
+    base_lr / 10 (optax.join_schedules). An SGD group's "lr" set from it
+    before each update scales that update as optax's schedule scales the
+    momentum trace; the count restarts nowhere, so the schedule survives a
+    checkpoint and a resume."""
+
+    def lr(step):
+        if drop_step > 0 and step >= drop_step:
+            return base_lr / 10
+        if warmup_steps <= 0:
+            return base_lr
+        return base_lr * min(max(step, 0), warmup_steps) / warmup_steps
+
+    return lr
+
+
 @torch.no_grad()
 def clip_per_tensor_norm(params, max_norm):
     """Scale each gradient in place by min(1, max_norm / ||g||). The norm

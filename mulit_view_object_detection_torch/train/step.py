@@ -12,7 +12,9 @@ draws its masks from the same generator.
 With TRAIN_BN the step writes every BatchNorm's running statistics once,
 from the forward's batch statistics, frozen stages included (JAX
 step.py:87-109 keeps the new batch_stats whatever the stage mask); the
-validation step writes none (step.py:119-138).
+validation step writes none (step.py:119-138). A float32 model's
+forward and backward run with TF32 off on the card
+(`models/detector.py::float32_arithmetic`).
 
 Data parallelism (`group`, a torch.distributed process group; None for
 one process): each rank holds its rows of the global batch and computes
@@ -49,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import losses as L
-from ..models.detector import UPSTREAM, view_group_of
+from ..models.detector import UPSTREAM, float32_arithmetic, view_group_of
 from ..models.layers import shard_of
 from ..models.resnet import BatchStats
 from ..ops.image_meta import parse_image_meta
@@ -117,20 +119,22 @@ def loss_and_grads(model, batch, config, mask, group=None):
     views_sharded = view_group_of(mesh, batch["images"].shape[1],
                                   config.NUM_VIEWS) is not None
     stats = BatchStats(data)
-    outputs = model(batch, training=True, stats=stats, mesh=mesh)
-    parts = compute_losses(outputs, batch, config, data)
-    total = L.total_loss(parts, config.LOSS_WEIGHTS)
-    paths = param_paths(model)
-    upstream = {n for n, _ in named if n.split(".")[0] in UPSTREAM}
-    first_view = not views_sharded or mesh.coord("view") == 0
-    terms = dict(l2_terms(named, paths, mask))
-    # this rank's L2 terms: each counted once in the sum its gradient joins
-    own = [t for n, t in terms.items() if mesh.coord("data") == 0
-           and (first_view or n not in upstream)]
-    loss = total
-    if own:
-        loss = total + config.WEIGHT_DECAY * torch.stack(own).sum()
-    loss.backward()
+    with float32_arithmetic(model):
+        outputs = model(batch, training=True, stats=stats, mesh=mesh)
+        parts = compute_losses(outputs, batch, config, data)
+        total = L.total_loss(parts, config.LOSS_WEIGHTS)
+        paths = param_paths(model)
+        upstream = {n for n, _ in named if n.split(".")[0] in UPSTREAM}
+        first_view = not views_sharded or mesh.coord("view") == 0
+        terms = dict(l2_terms(named, paths, mask))
+        # this rank's L2 terms: each counted once in the sum its gradient
+        # joins
+        own = [t for n, t in terms.items() if mesh.coord("data") == 0
+               and (first_view or n not in upstream)]
+        loss = total
+        if own:
+            loss = total + config.WEIGHT_DECAY * torch.stack(own).sum()
+        loss.backward()
     summed_over_views = upstream if views_sharded else set()
     _reduce([p for n, p in named if n in summed_over_views],
             mesh.data_view_group)

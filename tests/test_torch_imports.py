@@ -12,6 +12,10 @@ And the port carries every public name of the JAX package: an AST walk
 without a leading underscore, each found if some module of the port
 defines, assigns or imports it at top level; the names the port does not
 port are listed with the reason.
+
+And the port's quality harness carries every flag of the JAX tools it
+ports (tools/train_to_ap.py, tools/train_supervisor.py), by an AST walk
+of their `add_argument` calls.
 """
 
 import ast
@@ -20,6 +24,8 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,5 +113,27 @@ def test_each_module_imports_first():
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     count, *failed = run.stdout.strip().split("\n")
-    assert int(count) >= 68, run.stdout
+    # 70 with cli/train_to_ap.py and cli/train_supervisor.py
+    assert int(count) >= 70, run.stdout
     assert not [f for f in failed if f], failed
+
+
+def _flags(path):
+    """The option strings of every `add_argument` call in `path`."""
+    flags = set()
+    for n in ast.walk(ast.parse(pathlib.Path(path).read_text())):
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "add_argument"):
+            flags.update(a.value for a in n.args
+                         if isinstance(a, ast.Constant)
+                         and isinstance(a.value, str))
+    return flags
+
+
+@pytest.mark.parametrize("name", ["train_to_ap.py", "train_supervisor.py"])
+def test_quality_harness_carries_every_flag(name):
+    want = _flags(os.path.join(ROOT, "tools", name))
+    got = _flags(os.path.join(ROOT, "mulit_view_object_detection_torch",
+                              "cli", name))
+    assert len(want) >= (41 if name == "train_to_ap.py" else 3)
+    assert want <= got, sorted(want - got)

@@ -62,7 +62,7 @@ from mulit_view_object_detection_torch.train.trainable import (  # noqa: E402
 from mulit_view_object_detection_torch.utils.convert import (  # noqa: E402
     flax_to_torch, torch_to_flax)
 from tests.test_torch_convert import random_variables  # noqa: E402
-from tests.test_torch_detector import SliceConfig  # noqa: E402
+from tests.test_torch_detector import SliceConfig, _inputs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -481,6 +481,49 @@ def test_engine_trains_and_resumes(tmp_path, capsys):
     with pytest.raises(ValueError, match="training mode"):
         MaskRCNN("inference", cfg, str(tmp_path), device="cpu").train(
             ds, None, 0.001, 1, "all")
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_model_computes_without_tf32(tmp_path, dtype):
+    """Under COMPUTE_DTYPE "float32" the engine's training step (forward
+    and backward) and its detect see cuDNN's and cuBLAS's TF32 off
+    (models/detector.py::float32_arithmetic); a bfloat16 model sees them
+    as the process set them. The flags are restored after each call."""
+    cfg = type("Cfg", (TrainSlice,), {"COMPUTE_DTYPE": dtype})()
+    ds = SyntheticMultiViewDataset(num_scenes=2, num_views=2,
+                                   image_size=128, num_classes=4, seed=0)
+    eng = MaskRCNN("training", cfg, str(tmp_path), device="cpu")
+    stem = eng.model.backbone.conv1
+    seen = {"forward": set(), "backward": set()}
+    stem.register_forward_hook(
+        lambda *_: seen["forward"].add(_tf32_flags()))
+    stem.register_full_backward_hook(
+        lambda *_: seen["backward"].add(_tf32_flags()))
+    outside = (True, True)
+    saved = _tf32_flags()
+    try:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = outside
+        eng.train(ds, None, 0.001, 1, "all", prefetch_threads=1)
+        assert _tf32_flags() == outside
+        inside = (False, False) if dtype == "float32" else outside
+        assert seen == {"forward": {inside}, "backward": {inside}}
+        seen["forward"].clear()
+        infer = MaskRCNN("inference", cfg, str(tmp_path), device="cpu")
+        infer.model.backbone.conv1.register_forward_hook(
+            lambda *_: seen["forward"].add(_tf32_flags()))
+        images, rcam, kmat = _inputs(cfg, seed=3)
+        infer.detect([images[0]], rcam, kmat)
+        assert _tf32_flags() == outside
+        assert seen["forward"] == {inside}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def test_port_trains_with_jax_blocked():
