@@ -262,6 +262,24 @@ Phases, one line each (any failure exits non-zero):
                resumes at step 2 and ends with cumulative_seconds. One
                JSON line {"phase": "train_to_ap", ...}; (a)'s launches are
                a path of the kernels' record.
+ 17. examples — the two example programs (mulit_view_object_detection_
+               torch/examples/): every kernel call of demo_synthetic's
+               run_demo and of projection_playground's run_playground
+               (both lattices) held to its plain version on a CPU copy
+               (`held_to_plain`); then each program's main() in this
+               process, from a scratch working directory: the demo (2
+               views at 64^2, add fusion, pyramid 32) launches the
+               per-view unprojection and the reprojection forwards 3
+               levels each in their vector variants, the playground (RGB
+               as 3 channels on a 32^3 lattice, 6 depth samples) one of
+               each in their scalar variants, with and without
+               --camera-anchored; each writes its image (demo_output.jpg,
+               projection_playground.png), which OpenCV must decode; the
+               three `python -m` commands run as subprocesses beside
+               them and must exit 0 with their images written. One JSON
+               line {"phase": "examples", ...}; the launches are the
+               paths demo_synthetic and projection_playground of the
+               kernels' record.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -1111,16 +1129,23 @@ def read_counts():
             "reproject_bwd": reproject.bwd_launches}
 
 
-def check_variants(tag, counts):
-    """The kernel variants launched since the counts were reset: on the
-    main paths every launch must be the vector forward, the walk backward
-    of the unprojection or the reprojection's one-pass vector backward.
-    Returns them, by kernel family and variant."""
+def launched_variants():
+    """The kernel variants launched since the counts were reset, by kernel
+    family and variant."""
     got = {f"fused_{k}": n for k, n in unproject.fused_variants.items() if n}
     got.update({f"view_{k}": n for k, n in unproject.view_variants.items()
                 if n})
     got.update({f"reproject_{k}": n for k, n in reproject.variants.items()
                 if n})
+    return got
+
+
+def check_variants(tag, counts):
+    """The kernel variants launched since the counts were reset: on the
+    main paths every launch must be the vector forward, the walk backward
+    of the unprojection or the reprojection's one-pass vector backward.
+    Returns them, by kernel family and variant."""
+    got = launched_variants()
     want = {k: n for k, n in (
         ("fused_fwd_vector", counts["unproject"]),
         ("fused_bwd_walk", counts["unproject_bwd"]),
@@ -3007,6 +3032,115 @@ def phase_train_to_ap():
     return launches
 
 
+EXAMPLES = "mulit_view_object_detection_torch.examples."
+EXAMPLE_RUNS = (("demo_synthetic", ()), ("projection_playground", ()),
+                ("projection_playground", ("--camera-anchored",)))
+
+
+def _image_shape(path):
+    """(height, width, channels) of the image file that OpenCV decodes
+    at `path`, or None where it is missing, empty or does not decode."""
+    if not os.path.exists(path) or not os.path.getsize(path):
+        return None
+    im = cv2.imread(path)
+    return None if im is None else im.shape
+
+
+def phase_examples():
+    """Phase 17: the two example programs on the card. First every kernel
+    call of their run_* functions held to its plain version on a CPU copy
+    (not counted); then each program's main() in this process from a
+    scratch working directory, its launches counted and its variants
+    read (the demo: the per-view unprojection and the reprojection
+    forwards at C = 32 in their vector variants, 3 levels each; the
+    playground at C = 3: one scalar forward of each, per lattice), its
+    output image decoded; and the three `python -m` commands as
+    subprocesses beside it, each exiting 0 with its image written.
+    Returns the launches by program."""
+    from mulit_view_object_detection_torch.examples import (
+        demo_synthetic as demo, projection_playground as playground)
+    t0 = time.perf_counter()
+    failures, out, paths = [], {}, {}
+    geo = playground.GeoCfg()
+    levels = 5 - len(demo.DemoConfig().ZERO_PG_LEVELS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        procs = []
+        for i, (name, flags) in enumerate(EXAMPLE_RUNS):
+            cwd = os.path.join(work, f"cmd{i}")
+            os.makedirs(cwd)
+            procs.append((name, flags, cwd, subprocess.Popen(
+                [sys.executable, "-m", EXAMPLES + name, *flags],
+                cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)))
+        try:
+            held = {}
+            with held_to_plain(held):
+                demo.run_demo(demo.build_model(), demo.make_dataset())
+                for anchored in (False, True):
+                    playground.run_playground(geo, anchored)
+            out["held_to_plain"] = held
+            for key in ("unproject_view", "reproject"):
+                if not held.get(key, [0])[0]:
+                    failures.append(f"{key} never held to its plain version")
+            want = {
+                "demo_synthetic": (
+                    expected(unproject_view=levels, reproject=levels),
+                    {"view_fwd_vector": levels,
+                     "reproject_fwd_vector": levels}),
+                "projection_playground": (
+                    expected(unproject_view=1, reproject=1),
+                    {"view_fwd_scalar": 1, "reproject_fwd_scalar": 1})}
+            for i, (name, flags) in enumerate(EXAMPLE_RUNS):
+                module = demo if name == "demo_synthetic" else playground
+                tag = " ".join((name,) + flags)
+                cwd = os.path.join(work, f"main{i}")
+                os.makedirs(cwd)
+                reset_counts()
+                t = time.perf_counter()
+                with contextlib.chdir(cwd), \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    module.main([*flags])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+                launches, variants = read_counts(), launched_variants()
+                image = (demo.DEMO_OUTPUT if module is demo
+                         else playground.OUTPUT)
+                shape = _image_shape(os.path.join(cwd, image))
+                out[tag] = {"seconds": round(seconds, 3),
+                            "launches": launches, "variants": variants,
+                            "image": image, "image_shape": shape}
+                if (launches, variants) != want[name]:
+                    failures.append(f"{tag}: launches {launches}, variants "
+                                    f"{variants}, not {want[name]}")
+                if shape is None:
+                    failures.append(f"{tag}: {image} not written")
+                paths[name] = {k: paths.get(name, {}).get(k, 0) + n
+                               for k, n in launches.items()}
+        finally:
+            for name, flags, cwd, proc in procs:
+                try:
+                    log, _ = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    log, _ = proc.communicate()
+                image = (demo.DEMO_OUTPUT if name == "demo_synthetic"
+                         else playground.OUTPUT)
+                shape = _image_shape(os.path.join(cwd, image))
+                out["python -m " + " ".join((name,) + flags)] = {
+                    "rc": proc.returncode, "image_shape": shape}
+                if proc.returncode != 0 or shape is None:
+                    failures.append(f"python -m {name} {flags}: rc "
+                                    f"{proc.returncode}, {image} {shape}: "
+                                    f"{log[-1500:]}")
+    out["phase_seconds"] = round(time.perf_counter() - t0, 2)
+    print(json.dumps({"phase": "examples", "card": SMI[0], **out}),
+          flush=True)
+    if failures:
+        raise RuntimeError(f"examples phase: {failures}")
+    return paths
+
+
 def phase_train_options():
     """Phase 13; returns the launch counts of (a)'s training and (c)'s
     requests."""
@@ -3550,6 +3684,7 @@ def main():
     paths.update(phase_mesh())
     paths["eval_step"] = phase_eval_step()
     paths["train_to_ap"] = phase_train_to_ap()
+    paths.update(phase_examples())
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}
