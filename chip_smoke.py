@@ -261,7 +261,14 @@ Phases, one line each (any failure exits non-zero):
                one step) to --until-step 2: two segments exit 75, a third
                resumes at step 2 and ends with cumulative_seconds. One
                JSON line {"phase": "train_to_ap", ...}; (a)'s launches are
-               a path of the kernels' record.
+               a path of the kernels' record. Before (a), the records'
+               batch: every kernel call of a 2-step run at --batch 4 and
+               its evaluation (at batch 1, as the harness evaluates) held
+               to plain, each of the four kernels with batch-4 calls
+               among them; then TTA_B4_STEPS steps at --batch 4, timed
+               (step_ms under "batch4" in the phase's line, beside the
+               card's name and power limit) and counted as the path
+               train_to_ap_b4: the four kernels launched 5 levels a step.
  17. examples — the two example programs (mulit_view_object_detection_
                torch/examples/): every kernel call of demo_synthetic's
                run_demo and of projection_playground's run_playground
@@ -2853,6 +2860,8 @@ TTA_SIZE = ["--image-size", "64", "--num-views", "2", "--scenes", "2"]
 TTA_LOSS_FRACTION = 0.25
 TTA_PLANTED_LR = "1e-9"
 TTA_PLANTED_STEPS = 60    # first and last 20 steps apart
+TTA_B4 = ["--batch", "4"]  # the JAX AP records' training batch
+TTA_B4_STEPS = 20
 
 
 # the harness path's kernel wrappers: (kernel, module, wrapper, its plain
@@ -2918,7 +2927,10 @@ def phase_train_to_ap():
     """Phase 16: (a) the harness trains 200 steps at 64^2 and must pass
     the loss gate, a planted learning rate of 1e-9 must not; (b) the
     supervisor restarts segments to --until-step 2, in subprocesses
-    that run beside the planted run. Returns (a)'s launches."""
+    that run beside the planted run; before (a), the batch-4 leg: every
+    kernel call of 2 steps at --batch 4 held to plain, then
+    TTA_B4_STEPS steps timed. Returns (a)'s launches and the batch-4
+    steps'."""
     t0 = time.perf_counter()
     failures = []
     levels = 5 - len(tta.build_config(64, 2).ZERO_PG_LEVELS)
@@ -2939,6 +2951,39 @@ def phase_train_to_ap():
                         "reproject_bwd"):
                 if not held.get(key, [0])[0]:
                     failures.append(f"{key} never held to its plain version")
+            # the same at the records' batch 4: every call of 2 steps and
+            # an evaluation (at batch 1, as the harness evaluates) held to
+            # plain, each kernel's calls including batch-4 ones
+            held_b4 = {}
+            with held_to_plain(held_b4):
+                _tta(TTA_SIZE + TTA_B4 + ["--steps", "2", "--smoke",
+                                          "--min-conf", "0",
+                                          "--device", TTA_DEVICE], log)
+            # (the unprojection's first input holds B * V rows, 2 views)
+            for key, rows in (("unproject", 4 * 2), ("unproject_bwd", 4),
+                              ("reproject", 4), ("reproject_bwd", 4)):
+                calls, _, shapes = held_b4.get(key, [0, 0.0, []])
+                if not calls or not any(sh[0] == rows for sh in shapes):
+                    failures.append(f"{key} not held to its plain version at "
+                                    f"batch 4: {held_b4.get(key)}")
+            # then a few steps at batch 4, timed, their launches counted
+            # (path train_to_ap_b4); the 2 steps above warmed its shapes
+            reset_counts()
+            result_b4 = _tta(TTA_SIZE + TTA_B4 + [
+                "--steps", str(TTA_B4_STEPS), "--smoke", "--skip-eval",
+                "--device", TTA_DEVICE], log)
+            launches_b4 = read_counts()
+            check_variants("train_to_ap_b4", launches_b4)
+            want_b4 = expected(unproject=levels * TTA_B4_STEPS,
+                               unproject_bwd=levels * TTA_B4_STEPS,
+                               reproject=levels * TTA_B4_STEPS,
+                               reproject_bwd=levels * TTA_B4_STEPS)
+            if launches_b4 != want_b4:
+                failures.append(f"batch 4: launches {launches_b4} != "
+                                f"{want_b4}")
+            if not all(np.isfinite([result_b4["initial_loss"],
+                                    result_b4["final_loss"]])):
+                failures.append(f"batch 4: losses {result_b4}")
             reset_counts()
             t = time.perf_counter()
             args = TTA_SIZE + ["--steps", str(TTA_STEPS), "--smoke",
@@ -3021,6 +3066,12 @@ def phase_train_to_ap():
         "diagnostics": {k: v for k, v in diag.items() if k != "per_scene"},
         "device": result["device"], "launches": launches,
         "held_to_plain": held,
+        "batch4": {"steps": TTA_B4_STEPS,
+                   "step_ms": round(result_b4["seconds"] / TTA_B4_STEPS
+                                    * 1e3, 2),
+                   "initial_loss": result_b4["initial_loss"],
+                   "final_loss": result_b4["final_loss"],
+                   "launches": launches_b4, "held_to_plain": held_b4},
         "supervisor": {"rc": sup.returncode, "exits_75": exits_75,
                        "steps": sup_result.get("steps"),
                        "cumulative_seconds":
@@ -3029,7 +3080,7 @@ def phase_train_to_ap():
         "phase_seconds": round(time.perf_counter() - t0, 2)}), flush=True)
     if failures:
         raise RuntimeError(f"train_to_ap phase: {failures}\n{tail}")
-    return launches
+    return launches, launches_b4
 
 
 EXAMPLES = "mulit_view_object_detection_torch.examples."
@@ -3683,7 +3734,7 @@ def main():
         phase_train_options()
     paths.update(phase_mesh())
     paths["eval_step"] = phase_eval_step()
-    paths["train_to_ap"] = phase_train_to_ap()
+    paths["train_to_ap"], paths["train_to_ap_b4"] = phase_train_to_ap()
     paths.update(phase_examples())
     kernels = []
     for key in KERNELS:

@@ -34,3 +34,14 @@ def batch_slice(inputs, graph_fn, batch_size, names=None):
         outputs.append(output_slice)
     result = [np.stack(o, axis=0) for o in zip(*outputs)]
     return result[0] if len(result) == 1 else result
+
+
+def download_trained_weights(coco_model_path, verbose=1):
+    """utils.py:1098-1109: the reference downloads mask_rcnn_coco.h5 here.
+    The port, as the JAX package, fetches nothing: obtain the file
+    elsewhere and load it with `MaskRCNN.load_weights(path)`, which reads
+    it through utils/h5_import.py::load_h5_state_dict."""
+    raise NotImplementedError(
+        "No network egress in this environment; obtain mask_rcnn_coco.h5 "
+        "elsewhere and load it with MaskRCNN.load_weights (the port's "
+        "utils.h5_import.load_h5_state_dict).")
