@@ -287,6 +287,26 @@ Phases, one line each (any failure exits non-zero):
                line {"phase": "examples", ...}; the launches are the
                paths demo_synthetic and projection_playground of the
                kernels' record.
+ 18. tools   — the four measurement tools (mulit_view_object_detection_
+               torch/cli/) at full width on the card. First every kernel
+               call of one forward of each variant below and of one
+               flagship train step held to its plain version
+               (`held_to_plain`, not counted); then profile_variants
+               for every variant at batch 1 and conv3d at batch 4
+               (loop-difference ms/frame); mfu_report for conv3d
+               inference at batch 1 and 4 and the flagship train step
+               (exact FLOPs, the must-move and the eager bytes, ms, MFU
+               and the roofline floor); trace_analysis of conv3d
+               inference (its top 15 device ops, the device's busy time
+               against the trace's span); bench_input at 640^2, 2
+               views, thread mode, workers 1 and 4, 16 batches. Every line must parse, every
+               ms be > 0, every MFU lie in (0, 1]; conv3d's FLOPs at
+               batch 4 must be exactly 4 times batch 1's; the trace's
+               device events must hold the unprojection and reprojection
+               kernels; every kernel the tools launched must have been
+               held to plain. One JSON line {"phase": "tools", ...}; the
+               launches of the whole phase are the path `tools` of the
+               kernels' record.
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.
 """
@@ -333,7 +353,10 @@ from mulit_view_object_detection_torch.cli.export_synthetic_interiornet import (
     export_subset)
 from mulit_view_object_detection_torch.compat import MaskRCNN  # noqa: E402
 from mulit_view_object_detection_torch.compat import model as engine  # noqa: E402
-from mulit_view_object_detection_torch.config import Config  # noqa: E402
+from mulit_view_object_detection_torch.cli.measure import (  # noqa: E402
+    flagship_train_config)
+from mulit_view_object_detection_torch.cli.profile_variants import (  # noqa: E402
+    variant_config)
 from mulit_view_object_detection_torch.data.generator import (  # noqa: E402
     PrefetchError, ProcessPrefetcher, make_batch)
 from mulit_view_object_detection_torch.data.synthetic import (  # noqa: E402
@@ -441,48 +464,34 @@ KERNELS = ("unproject", "unproject_bwd", "unproject_view",
            "unproject_view_bwd", "reproject", "reproject_bwd")
 
 
-class FlagshipConfig(Config):
-    """bench.py's flagship BenchConfig, with the TPU-only lowerings off
-    (the port runs the plain layers they lower)."""
+class FlagshipConfig(type(variant_config("conv3d"))):
+    """bench.py's flagship: cli/profile_variants.py's conv3d variant (the
+    TPU-only lowerings off, the port runs the plain layers they lower),
+    with the BatchNorms left unfolded."""
     NAME = "flagship_640"
-    NUM_CLASSES = 23
-    NUM_VIEWS = 2
-    BACKBONE = "resnet50"
-    RESNET50_STAGE4_BLOCKS = 5
-    TOP_DOWN_PYRAMID_SIZE = 64
-    GRID_REAS = "conv3d"
-    IMAGE_MIN_DIM = 640
-    IMAGE_MAX_DIM = 640
-    PRE_NMS_LIMIT = 1500
-    POST_NMS_ROIS_INFERENCE = 500
-    DETECTION_MAX_INSTANCES = 100
     DETECTION_MIN_CONFIDENCE = 0.0   # random weights still give rows
-    nvox = 40
-    nvox_z = 40
-    vmin, vmax = -2.5, 2.5
-    vmin_z, vmax_z = 1.0, 10.0
-    samples = 20
-    COMPUTE_DTYPE = "bfloat16"
+    FOLD_BN = False
 
 
-class FlagshipTrainConfig(FlagshipConfig):
-    """bench_train.py:22-53's flagship training config; 3 steps an
-    epoch, 1 validation step."""
+class FlagshipTrainConfig(type(flagship_train_config())):
+    """bench_train.py:22-53's flagship training config
+    (cli/measure.py::flagship_train_config); 3 steps an epoch, 1
+    validation step, its detections at the flagship's 500 proposals."""
     NAME = "flagship_train_640"
-    POST_NMS_ROIS_TRAINING = 500
-    TRAIN_ROIS_PER_IMAGE = 200
-    MAX_GT_INSTANCES = 100
+    DETECTION_MIN_CONFIDENCE = 0.0
+    POST_NMS_ROIS_INFERENCE = 500
     STEPS_PER_EPOCH = 3
     VALIDATION_STEPS = 1
 
 
-class Lstm4Config(FlagshipConfig):
-    """The per-view kernel's configuration of record: bench.py:97-116's
-    BenchConfig with 4 views and lstm3d fusion (tools/profile_variants.py:
-    90-93, BENCH_4VIEW_r05.json's 4view_640_lstm3d row)."""
+class Lstm4Config(type(variant_config("lstm3d4"))):
+    """The per-view kernel's configuration of record: the lstm3d4 variant,
+    bench.py:97-116's BenchConfig with 4 views and lstm3d fusion
+    (tools/profile_variants.py:90-93, BENCH_4VIEW_r05.json's
+    4view_640_lstm3d row)."""
     NAME = "lstm3d4_640"
-    NUM_VIEWS = 4
-    GRID_REAS = "lstm3d"
+    DETECTION_MIN_CONFIDENCE = 0.0
+    FOLD_BN = False
 
 
 class Lstm4TrainConfig(Lstm4Config):
@@ -494,16 +503,13 @@ class Lstm4TrainConfig(Lstm4Config):
     STEPS_PER_EPOCH = 3
 
 
-class XformerConfig(FlagshipConfig):
+class XformerConfig(type(variant_config("xformer"))):
     """tools/profile_variants.py:94-101: 2 views, the transformer on P5
     (pyramid and d_model 72, one sample per ray), XFORMER_* defaults
     (6 layers, 8 heads, dff 256, dropout 0.1)."""
     NAME = "xformer_640"
-    GRID_REAS = "ident"
-    TRANSFORMER = True
-    TOP_DOWN_PYRAMID_SIZE = 72
-    XFORMER_D_MODEL = 72
-    samples = 1
+    DETECTION_MIN_CONFIDENCE = 0.0
+    FOLD_BN = False
 
 
 class XformerTrainConfig(XformerConfig):
@@ -3192,6 +3198,145 @@ def phase_examples():
     return paths
 
 
+# phase 18: the measurement tools
+TOOL_TOP = 15
+INPUT_WORKERS = (1, 4)
+INPUT_BATCHES = 16
+
+
+def _trace_kernels(rows):
+    """The unprojection's and the reprojection's forward kernels among a
+    trace's device ops: both live in csrc/'s namespace mvod as fwd_kernel;
+    the reprojection's takes a ZIndex, the unprojection's does not."""
+    ours = [name for name, _, _ in rows if "mvod" in name
+            and "fwd_kernel" in name]
+    return ([n for n in ours if "ZIndex" not in n],
+            [n for n in ours if "ZIndex" in n])
+
+
+def _held_tools(variants, failures):
+    """Every kernel call of one forward of each (variant, batch) and of
+    one flagship train step, held to its plain version at the shapes
+    these tools give it (not counted): {workload: held_to_plain's
+    record}."""
+    from mulit_view_object_detection_torch.cli import measure, mfu_report
+    held = {}
+    runs = [(f"{name}:b{batch}", functools.partial(
+        measure.inference_setup, variant_config(name, batch), DEV),
+        lambda model, inputs: measure.infer_loop(model, inputs, 1))
+        for name, batch in variants]
+    runs.append(("train_step", functools.partial(
+        mfu_report.train_workload, DEV), lambda _m, _b, steps: steps(1)))
+    for workload, setup, run in runs:
+        record = held.setdefault(workload, {})
+        try:
+            made = setup()
+            with held_to_plain(record):
+                run(*made)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            failures.append(f"{workload} held to plain: {e}")
+        made = None
+    return held
+
+
+def phase_tools():
+    """Phase 18: the four tools on the card, as their CLIs run them, each
+    JSON line parsed back; before them, every kernel call of one forward
+    of each variant and of one train step held to its plain version.
+    Returns the phase's launches."""
+    from mulit_view_object_detection_torch.cli import (
+        bench_input, mfu_report, profile_variants, trace_analysis)
+    t0 = time.perf_counter()
+    failures, out = [], {"card": SMI[0]}
+    variants = [(v, 1) for v in profile_variants.VARIANTS] + [("conv3d", 4)]
+    out["held_to_plain"] = _held_tools(variants, failures)
+    out["held_seconds"] = round(time.perf_counter() - t0, 2)
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    def line(fields):
+        parsed = json.loads(json.dumps(fields))
+        print(json.dumps({"tool_line": parsed}), flush=True)
+        return parsed
+
+    out["profile_variants"] = []
+    for name, batch in variants:
+        t = time.perf_counter()
+        row = line(profile_variants.time_variant(name, batch, "cuda"))
+        row["seconds"] = round(time.perf_counter() - t, 2)
+        out["profile_variants"].append(row)
+        if not row["ms_per_frame"] > 0:
+            failures.append(f"profile_variants {name}:b{batch}: {row}")
+
+    out["mfu_report"] = []
+    for fn in (lambda: mfu_report.inference_report("conv3d", "cuda"),
+               lambda: mfu_report.inference_report("conv3d", "cuda", 4),
+               lambda: mfu_report.train_report("cuda")):
+        t = time.perf_counter()
+        row = line(fn())
+        row["seconds"] = round(time.perf_counter() - t, 2)
+        out["mfu_report"].append(row)
+        if not (row["ms"] > 0 and 0 < row["mfu"] <= 1 and row["flops"] > 0
+                and 0 < row["min_bytes"] <= row["eager_bytes"]):
+            failures.append(f"mfu_report {row['workload']}: {row}")
+    b1, b4 = out["mfu_report"][0]["flops"], out["mfu_report"][1]["flops"]
+    out["flops_b4_over_b1"] = b4 / b1
+    if b4 != 4 * b1:
+        failures.append(f"conv3d inference FLOPs at batch 4 ({b4}) are not "
+                        f"4 x batch 1's ({b1})")
+
+    t = time.perf_counter()
+    path = trace_analysis.capture(
+        "conv3d", "cuda", os.path.join(ROOT, "build", "tools_trace.json"))
+    trace = trace_analysis.load(path)
+    scope, total_ms, rows = trace_analysis.top_ops(trace, n=10 ** 6)
+    print(trace_analysis.format_top(scope, total_ms, rows[:TOOL_TOP]),
+          flush=True)
+    unproj, reproj = _trace_kernels(rows)
+    busy, span = trace_analysis.busy_and_span(trace)
+    out["trace_analysis"] = {
+        "scope": scope, "device_ms_3_steps": round(total_ms, 4),
+        "device_busy_ms": round(busy, 4), "trace_span_ms": round(span, 4),
+        "idle_share": round(1 - busy / span, 4) if span else None,
+        "ops": len(rows), "unprojection_kernels": unproj,
+        "reprojection_kernels": reproj,
+        "top": [[n, round(ms, 4), c] for n, ms, c in rows[:TOOL_TOP]],
+        "seconds": round(time.perf_counter() - t, 2)}
+    if scope != "device" or not unproj or not reproj:
+        failures.append(f"trace_analysis: scope {scope}, unprojection "
+                        f"{unproj}, reprojection {reproj}; mvod kernels "
+                        f"{[n for n, _, _ in rows if 'mvod' in n]}")
+
+    cfg, fn = bench_input.make_fn(640, 2)
+    out["bench_input"] = []
+    for workers in INPUT_WORKERS:
+        row = line(bench_input.measure("thread", fn, cfg, workers,
+                                       INPUT_BATCHES))
+        out["bench_input"].append(row)
+        if not row["frames_per_sec"] > 0:
+            failures.append(f"bench_input workers {workers}: {row}")
+
+    torch.cuda.synchronize()
+    launches = read_counts()
+    out["launches"] = launches
+    for key in ("unproject", "unproject_bwd", "unproject_view", "reproject",
+                "reproject_bwd"):
+        if not launches[key]:
+            failures.append(f"the tools launched no {key}")
+    for key in KERNELS:
+        calls = sum(rec.get(key, [0])[0]
+                    for rec in out["held_to_plain"].values())
+        if launches[key] and not calls:
+            failures.append(f"{key}: launched by the tools, never held to "
+                            f"its plain version")
+    out["phase_seconds"] = round(time.perf_counter() - t0, 2)
+    print(json.dumps({"phase": "tools", **out}), flush=True)
+    if failures:
+        raise RuntimeError(f"tools phase: {failures}")
+    return launches
+
+
 def phase_train_options():
     """Phase 13; returns the launch counts of (a)'s training and (c)'s
     requests."""
@@ -3736,6 +3881,7 @@ def main():
     paths["eval_step"] = phase_eval_step()
     paths["train_to_ap"], paths["train_to_ap_b4"] = phase_train_to_ap()
     paths.update(phase_examples())
+    paths["tools"] = phase_tools()
     kernels = []
     for key in KERNELS:
         by_path = {path: counts[key] for path, counts in paths.items()}

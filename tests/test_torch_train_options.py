@@ -234,16 +234,45 @@ def _grad_errs(ref, got, floor):
             for n, r in ref.items()}
 
 
+BN_STEP_LR = 1e3                 # (old - new) / lr resolves the gradient
+
+
+@pytest.fixture(scope="module")
+def jax_bn_step():
+    """The inputs of test_train_bn_step_matches_jax and JAX's float64
+    TRAIN_BN step from them (REMAT off), computed once for both of its
+    cases: (batch, variables, JAX's new state_dict, metrics,
+    priorities)."""
+    cfg = BNSlice()
+    ds = JaxSynthetic(num_scenes=2, num_views=2, image_size=128,
+                      num_classes=4, seed=0)
+    batch = jax_make_batch(ds, cfg, rnd_state=1)
+    variables = random_variables(cfg, seed=5)
+    monkeypatch = pytest.MonkeyPatch()
+    try:
+        return (batch, variables) + _jax_bn_step(
+            cfg, variables, batch, "all", monkeypatch, BN_STEP_LR)
+    finally:
+        monkeypatch.undo()
+
+
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
-def test_train_bn_step_matches_jax(remat, monkeypatch):
-    """TRAIN_BN (and REMAT) on in both packages, stage "all", one step
-    from the same weights, batch and priorities, the JAX step computed in
-    float64 (its modules' compute dtype patched, jax's x64 mode on; the
-    weights are the same float32 values): the port's step in float64 has
-    the five losses and the total within 1e-4, every updated running
-    statistic within 1e-4 of its tensor's largest magnitude and every
-    clipped gradient by phase 7's rule; its float32 step, the losses and
-    the statistics.
+def test_train_bn_step_matches_jax(remat, jax_bn_step, monkeypatch):
+    """TRAIN_BN on in both packages (and the port's REMAT), stage "all",
+    one step from the same weights, batch and priorities, the JAX step
+    computed in float64 (its modules' compute dtype patched, jax's x64
+    mode on; the weights are the same float32 values): the port's step in
+    float64 has the five losses and the total within 1e-4, every updated
+    running statistic within 1e-4 of its tensor's largest magnitude and
+    every clipped gradient by phase 7's rule; its float32 step, the
+    losses and the statistics.
+
+    Both cases hold the port to one JAX step, JAX's with REMAT off
+    (`jax_bn_step`, computed once): REMAT recomputes the same forward in
+    the backward and changes no value in JAX
+    (tests/test_nn_modules.py::test_resnet_remat_grads_match holds its
+    gradients to the plain step's), so the port's REMAT step is held to
+    the plain JAX step under the same tolerances.
 
     Why float64. On the CPU at this size (batch statistics over 2 views
     of 128^2, 32 values a channel at C5) float32 rounding is amplified
@@ -263,13 +292,8 @@ def test_train_bn_step_matches_jax(remat, monkeypatch):
     In float64 the two packages agree to 5e-5 on every gradient."""
     cfg = BNSlice()
     cfg.REMAT = remat
-    lr = 1e3                      # (old - new) / lr resolves the gradient
-    ds = JaxSynthetic(num_scenes=2, num_views=2, image_size=128,
-                      num_classes=4, seed=0)
-    batch = jax_make_batch(ds, cfg, rnd_state=1)
-    variables = random_variables(cfg, seed=5)
-    ref, metrics, priorities = _jax_bn_step(cfg, variables, batch, "all",
-                                            monkeypatch, lr)
+    lr = BN_STEP_LR
+    batch, variables, ref, metrics, priorities = jax_bn_step
     monkeypatch.setattr(unproject, "_check_device", lambda t, what: None)
     old = flax_to_torch(variables)
     for dtype in (torch.float32, torch.float64):
